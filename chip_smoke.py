@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, each of which exits non-zero on failure:
+
+1. build: compile ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a;
+2. kernels: each hand kernel against its plain PyTorch version on the
+   card, at the shapes the main path gives it on the paper's NCI-60
+   workload (n = 1190 variables, m = 47 samples, density 0.02,
+   α = 0.01; seeded Gaussian-DAG stand-in data): corr (plus the §5.6
+   shape m = 10000, n = 1000), level1 on the level-0 adjacency, cholinv
+   and cisweep on the first ℓ = 2 chunk. Decisions may differ only in
+   cells whose statistic lies within τ ± 1e-4 (found by re-running the
+   plain version at τ ± 1e-4); cholinv must agree to rtol 1e-5,
+   atol 1e-6; corr to atol 2e-6;
+3. end to end: ``pc(x)`` on NCI-60 with the launch counts reset just
+   before and read just after (every kernel must have launched), a
+   float64 certificate of every recorded sepset, and equality with the
+   port's own CPU run on an n = 200 instance fed the same C. A test
+   whose float64 statistic lies past τ by less than the forward-error
+   bound of its fp32 evaluation (see ``z_of``) is not decidable in fp32,
+   the reference's arithmetic as much as the port's; the certificate
+   counts such tests and does not fail them.
+
+The last two lines are a ``{"kernels": [...]}`` record and
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+BAND = 1e-4
+NCI60 = dict(n=1190, m=47, density=0.02, alpha=0.01, seed=0)
+SMALL = dict(n=200, m=47, density=0.02, alpha=0.01, seed=1)
+# fp32 operations per tested level-1 cell: num 2, den 5, max 1, rsqrt 1,
+# mul 1, clip 2, atanh ≈ 5 (sub, div, log1p, mul), abs+compare 1
+L1_OPS_PER_CELL = 18
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise PhaseError(msg)
+
+
+def cuda_ms(torch, fn, reps=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(bytes_moved, ops):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cholinv_ops(ell):
+    """fp32 operations of one set in csrc/cholinv.cu, counted from its loops."""
+    ops = (ell - 1) + 2 + ell  # scale, jit_eff, diagonal jitter
+    for j in range(ell):
+        ops += 2 * j + 3  # diagonal: j mul-sub pairs, max, sqrt, reciprocal
+        ops += (ell - j - 1) * (2 * j + 1)  # below-diagonal entries
+    for j in range(ell):
+        ops += 1
+        for i in range(j + 1, ell):
+            ops += 1 + 2 * (i - j - 1) + 1
+    for i in range(ell):
+        for j in range(i, ell):
+            ops += 2 * (ell - j) + 2 + (2 if i != j else 0)
+    return ops + 2 * ell  # var
+
+
+def cisweep_ops(ell):
+    return 5 * ell + 4 * (ell * (ell - 1) // 2) + 12
+
+
+def band_diff(got, want, lo, hi):
+    """(# differing cells, # differing cells whose decision does not move
+    between τ − 1e-4 and τ + 1e-4)."""
+    diff = got != want
+    outside = diff & (lo == hi)
+    return int(diff.sum()), int(outside.sum())
+
+
+def gather_tests(c64, i, j, sets):
+    """What CI test (i, j | S) reads of C, for index arrays i, j (k,) and
+    sets (k, ℓ): (C_ij, C(i,S), C(j,S), C[S,S])."""
+    return (c64[i, j], c64[i[:, None], sets], c64[j[:, None], sets],
+            c64[sets[:, :, None], sets[:, None, :]])
+
+
+def z_of(cij, ci, cj, m2):
+    """(|atanh ρ(i, j | S)| in float64, and a first-order bound on how far
+    the fp32 evaluation of the same test can stray from it).
+
+    The bound: a Cholesky-based solve in fp32 is backward stable with
+    error about (ℓ + 1)·u·‖M2⁻¹‖ (u = 2^-24), so the residual variances
+    var = 1 − cᵀM2⁻¹c and the numerator C_ij − C(i,S)ᵀM2⁻¹C(j,S) carry
+    absolute errors up to e = 2(ℓ + 1)·u·(1 + ‖M2⁻¹‖·‖c‖²); these move ρ
+    by e_num/√(var_i·var_j) + |ρ|·(e_i/2var_i + e_j/2var_j) and z by that
+    over 1 − ρ². Tests on nearly collinear variables (|C| → 1) have small
+    residual variances and a large bound: fp32 cannot decide them."""
+    import numpy as np
+
+    ell = ci.shape[1]
+    if ell == 0:
+        rho, drho = cij, np.zeros_like(cij)
+    else:
+        gi = np.linalg.solve(m2, ci[..., None])[..., 0]
+        gj = np.linalg.solve(m2, cj[..., None])[..., 0]
+        num = cij - np.einsum("ka,ka->k", ci, gj)
+        vi = 1.0 - np.einsum("ka,ka->k", ci, gi)
+        vj = 1.0 - np.einsum("ka,ka->k", cj, gj)
+        den = np.sqrt(np.maximum(vi * vj, 1e-300))
+        rho = num / den
+        inv_norm = 1.0 / np.maximum(np.linalg.eigvalsh(m2)[:, 0], 1e-300)
+        k = 2 * (ell + 1) * 2.0**-24
+        ni, nj = (ci * ci).sum(1), (cj * cj).sum(1)
+        e_i, e_j = k * (1 + inv_norm * ni), k * (1 + inv_norm * nj)
+        e_num = k * (np.abs(cij) + inv_norm * np.sqrt(ni * nj))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            drho = e_num / den + np.abs(rho) * (e_i / (2 * vi) + e_j / (2 * vj))
+        drho = np.where((vi > e_i) & (vj > e_j), drho, np.inf)
+    rho = np.clip(rho, -0.9999999, 0.9999999)
+    return np.abs(np.arctanh(rho)), drho / (1 - rho * rho)
+
+
+def certify(run, c64, m, alpha, threshold):
+    """Every recorded sepset must pass its CI test recomputed in float64:
+    z ≤ τ, or within the band τ + 1e-4, or (ill-conditioned for fp32)
+    within τ + 1e-4 + its fp32 error bound. Returns per-ℓ counts; raises
+    on a failure."""
+    import numpy as np
+
+    n = run.adj.shape[0]
+    iu, ju = np.triu_indices(n, 1)
+    srows = run.sepsets[iu, ju]
+    keep = ~run.adj[iu, ju] & (srows[:, 0] >= 0)
+    iu, ju, srows = iu[keep], ju[keep], srows[keep]
+    sizes = (srows >= 0).sum(axis=1)
+    counts = {}
+    for ell in np.unique(sizes):
+        sel = sizes == ell
+        tau = threshold(m, int(ell), alpha)
+        z, err = z_of(*gather_tests(c64, iu[sel], ju[sel], srows[sel, :ell].astype(np.int64)))
+        bad = z > tau + BAND + err
+        if bad.any():
+            raise PhaseError(f"sepset certificate failed at ℓ={ell}: {int(bad.sum())} sets "
+                             f"with z > τ + {BAND} + fp32 error bound (worst z - τ = "
+                             f"{float((z - tau)[bad].max()):.3g})")
+        counts[int(ell)] = dict(checked=int(sel.sum()),
+                                band=int(((z > tau) & (z <= tau + BAND)).sum()),
+                                fp32_undecidable=int((z > tau + BAND).sum()))
+    return counts
+
+
+def explain_diffs(a, b, c64, m, alpha, threshold):
+    """Edges where two runs differ in adjacency or sepset; each must be
+    explained by a CI test of either run's sepset lying within the band
+    (plus its fp32 error bound) of τ."""
+    import numpy as np
+
+    n = a.adj.shape[0]
+    iu, ju = np.triu_indices(n, 1)
+    differ = (a.adj[iu, ju] != b.adj[iu, ju]) | (a.sepsets[iu, ju] != b.sepsets[iu, ju]).any(1)
+    unexplained = 0
+    for i, j in zip(iu[differ], ju[differ]):
+        near = False
+        for run in (a, b):
+            s = run.sepsets[i, j]
+            if run.adj[i, j] or s[0] < 0:
+                continue
+            ids = s[s >= 0].astype(np.int64)
+            z, err = z_of(*gather_tests(c64, np.array([i]), np.array([j]), ids[None, :]))
+            near |= abs(z[0] - threshold(m, len(ids), alpha)) <= BAND + err[0]
+        unexplained += not near
+    return int(differ.sum()), unexplained
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: the repro_torch package is missing under {SRC}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    warnings.simplefilter("ignore", UserWarning)  # m < n is this workload's regime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    import numpy as np
+
+    from repro_torch import pc, pc_from_corr
+    from repro_torch.core import engines, levels as L
+    from repro_torch.core.cit import threshold
+    from repro_torch.core.compact import compact_rows
+    from repro_torch.data.synthetic_dag import sample_gaussian_dag
+    from repro_torch.kernels import build, cholinv, cisweep, corr, level1, ops
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip())
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+    # ---------------------------------------------------------------- build
+    t0 = time.monotonic()
+    built = build.library()
+    print(f"build: {built.seconds:.1f} s nvcc ({time.monotonic() - t0:.1f} s with load) "
+          f"-> {built.path.name}")
+    for line in built.ptxas.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print("  ptxas " + line.strip())
+
+    dev = torch.device("cuda")
+    cfg = NCI60
+    x_np, _ = sample_gaussian_dag(cfg["n"], cfg["m"], cfg["density"], seed=cfg["seed"])
+    x = torch.tensor(x_np, dtype=torch.float32, device=dev)
+    m, n, alpha = cfg["m"], cfg["n"], cfg["alpha"]
+    tau = [threshold(m, ell, alpha) for ell in range(3)]
+    rows = {}
+
+    # -------------------------------------------------------------- kernels
+    # corr, at the main path's shape and at the paper's §5.6 shape
+    for label, (mm, nn, dens, seed) in (("nci60", (m, n, cfg["density"], cfg["seed"])),
+                                        ("s5.6", (10000, 1000, 0.1, 1))):
+        xs = x if label == "nci60" else torch.tensor(
+            sample_gaussian_dag(nn, mm, dens, seed=seed)[0], dtype=torch.float32, device=dev)
+        xn = ops.standardize(xs).contiguous()
+        got = corr.corr_matmul(xn)
+        want = corr.corr_matmul_plain(xn)
+        err = float((got - want).abs().max())
+        k_ms = cuda_ms(torch, lambda: corr.corr_matmul(xn))
+        p_ms = cuda_ms(torch, lambda: corr.corr_matmul_plain(xn))
+        lib_ms = cuda_ms(torch, lambda: torch.matmul(xn.T, xn))
+        b_ms, b_by = bound((mm * nn + nn * nn) * 4, 2 * mm * nn * nn)
+        print(f"kernel corr m={mm} n={nn}: max_abs_err {err:.3g} (tol 2e-6) kernel {k_ms:.4f} ms "
+              f"plain {p_ms:.4f} ms torch.matmul {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        check(err <= 2e-6, f"corr m={mm} n={nn} disagrees with its plain version: {err}")
+        if label == "nci60":
+            rows["corr"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=lib_ms)
+
+    c = ops.correlation(x)
+    adj0 = L.level0(c, tau[0])
+    print(f"level 0: {int(adj0.sum()) // 2} edges, max degree {int(adj0.sum(1).max())}")
+
+    # level1 on the level-0 adjacency
+    rem_k, kwin_k = level1.level1_dense_kernel(c, adj0, tau[1])
+    rem_p, kwin_p = level1.level1_dense_plain(c, adj0, tau[1])
+    rem_lo, kwin_lo = level1.level1_dense_plain(c, adj0, tau[1] - BAND)
+    rem_hi, kwin_hi = level1.level1_dense_plain(c, adj0, tau[1] + BAND)
+    d_rem, o_rem = band_diff(rem_k, rem_p, rem_lo, rem_hi)
+    d_kw, o_kw = band_diff(kwin_k, kwin_p, kwin_lo, kwin_hi)
+    outside = ((rem_k != rem_p) | (kwin_k != kwin_p)) & (rem_lo == rem_hi) & (kwin_lo == kwin_hi)
+    err = float(torch.where(outside, (kwin_k - kwin_p).abs().float(), 0.0).max()) if o_kw else 0.0
+    err = max(err, 1.0 if o_rem else 0.0)
+    k_ms = cuda_ms(torch, lambda: level1.level1_dense_kernel(c, adj0, tau[1]), reps=10)
+    p_ms = cuda_ms(torch, lambda: level1.level1_dense_plain(c, adj0, tau[1]), reps=3, warmup=1)
+    # cells the data needs: masked-in k of alive edges, up to the least own
+    # separator when there is one (after it neither output can change)
+    cells = 0
+    ks = torch.arange(n, device=dev)
+    for i0 in range(0, n, 64):
+        i1 = min(n, i0 + 64)
+        ri = torch.arange(i0, i1, device=dev)
+        alive = adj0[i0:i1] & (ri[:, None] != ks[None, :])
+        kmask = (adj0[i0:i1, None, :] | adj0[None, :, :]) & (ks[None, None, :] != ri[:, None, None])
+        kmask &= ks[None, None, :] != ks[None, :, None]
+        stop = torch.where(kwin_p[i0:i1] < level1.BIG, kwin_p[i0:i1], n - 1)
+        cells += int((kmask & alive[:, :, None] & (ks[None, None, :] <= stop[:, :, None])).sum())
+    b_ms, b_by = bound(10 * n * n, L1_OPS_PER_CELL * cells)
+    print(f"kernel level1 n={n}: removed differs in {d_rem} cells ({o_rem} outside the τ band), "
+          f"kwin differs in {d_kw} ({o_kw} outside); kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
+          f"bound {b_ms:.4f} ms ({b_by}, {cells} tested cells)")
+    check(o_rem == 0 and o_kw == 0, "level1 decisions differ outside the τ band")
+    rows["level1"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None)
+
+    # cholinv and cisweep on the first ℓ = 2 chunk of the run
+    sep0 = torch.full((n, n, 8), -1, dtype=torch.int32, device=dev)
+    sep0[:, :, 0] = torch.where(adj0, -1, -2).to(torch.int32)
+    adj1, _sep1, _ = engines.run_level(c, adj0, sep0, 1, tau[1])
+    ell = 2
+    npr = int(adj1.sum(1).max())
+    npr_b, n_chunk, total = L.plan_level(npr, ell, n, n_cols=n)
+    compact, counts = compact_rows(adj1, n_prime=npr_b)
+    ranks = torch.arange(n_chunk, dtype=torch.int32, device=dev)
+    rows_i = torch.arange(n, dtype=torch.int32, device=dev)
+    m2, ci_s, cj_s, cij, mask, _ = L.gather_s(c, adj1, compact, counts, rows_i, ranks,
+                                              ell=ell, n_max=npr_b)
+    b = n * n_chunk
+    m2 = m2.reshape(b, ell, ell).contiguous()
+    ci_s = ci_s.reshape(b, ell).contiguous()
+    cj_s = cj_s.reshape(b, npr_b, ell).contiguous()
+    cij = cij.reshape(b, npr_b).contiguous()
+    mask = mask.reshape(b, npr_b).contiguous()
+    print(f"ℓ=2 chunk: max degree {npr} (bucket {npr_b}), {total} ranks, chunk {n_chunk}, "
+          f"B={b} sets x P={npr_b} slots, {int(mask.sum())} masked-in cells")
+    g_k, u_k, v_k = cholinv.cholinv(m2, ci_s)
+    g_p, u_p, v_p = cholinv.cholinv_plain(m2, ci_s)
+    err = max(float((a - p).abs().max()) for a, p in ((g_k, g_p), (u_k, u_p), (v_k, v_p)))
+    close = all(torch.allclose(a, p, rtol=1e-5, atol=1e-6)
+                for a, p in ((g_k, g_p), (u_k, u_p), (v_k, v_p)))
+    k_ms = cuda_ms(torch, lambda: cholinv.cholinv(m2, ci_s))
+    p_ms = cuda_ms(torch, lambda: cholinv.cholinv_plain(m2, ci_s))
+    b_ms, b_by = bound(b * (2 * ell * ell + 2 * ell + 1) * 4, b * cholinv_ops(ell))
+    print(f"kernel cholinv ℓ={ell} B={b}: max_abs_err {err:.3g} (rtol 1e-5, atol 1e-6) "
+          f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {b_ms:.5f} ms ({b_by})")
+    check(close, f"cholinv disagrees with its plain version: max_abs_err {err}")
+    rows["cholinv"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=None)
+
+    got = cisweep.cisweep(g_k, u_k, v_k, cj_s, cij, mask, tau[2])
+    want = cisweep.cisweep_plain(g_k, u_k, v_k, cj_s, cij, mask, tau[2])
+    lo = cisweep.cisweep_plain(g_k, u_k, v_k, cj_s, cij, mask, tau[2] - BAND)
+    hi = cisweep.cisweep_plain(g_k, u_k, v_k, cj_s, cij, mask, tau[2] + BAND)
+    d_sw, o_sw = band_diff(got, want, lo, hi)
+    k_ms = cuda_ms(torch, lambda: cisweep.cisweep(g_k, u_k, v_k, cj_s, cij, mask, tau[2]))
+    p_ms = cuda_ms(torch, lambda: cisweep.cisweep_plain(g_k, u_k, v_k, cj_s, cij, mask, tau[2]))
+    cells_sw = b * npr_b
+    b_ms, b_by = bound(b * (ell * ell + ell + 1) * 4 + cells_sw * (4 * ell + 4 + 1 + 1),
+                       int(mask.sum()) * cisweep_ops(ell))
+    print(f"kernel cisweep ℓ={ell}: decisions differ in {d_sw} cells ({o_sw} outside the τ band) "
+          f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {b_ms:.5f} ms ({b_by})")
+    check(o_sw == 0, "cisweep decisions differ outside the τ band")
+    rows["cisweep"] = dict(max_abs_err=1.0 if o_sw else 0.0, ms=k_ms, plain_ms=p_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # ----------------------------------------------------------- end to end
+    # a first run loads PyTorch's own CUDA modules (sort, unique, bmm, ...)
+    # on first use; the measured run after it is the steady state
+    t0 = time.monotonic()
+    first = pc(x_np, alpha=alpha)
+    first_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.monotonic()
+    run = pc(x_np, alpha=alpha)
+    torch.cuda.synchronize()
+    e2e_s = time.monotonic() - t0
+    launches = dict(build.LAUNCHES)
+    check((run.adj == first.adj).all() and (run.sepsets == first.sepsets).all(),
+          "two runs of pc(x) on the card disagree")
+    print(f"e2e pc(x) NCI-60 n={n} m={m}: {e2e_s:.3f} s (first run {first_s:.3f} s), "
+          f"{run.levels_run} levels, {int(run.adj.sum()) // 2} edges, "
+          f"timings {json.dumps(run.timings_s)}")
+    for st in run.level_stats:
+        print(f"  level {st['level']}: engine {st['engine']} max degree {st['npr']} "
+              f"chunks {st['chunks']} {run.timings_s.get('level%d' % st['level'], 0.0):.4f} s")
+    print(f"  launches {json.dumps(launches)}")
+    check(all(launches[k] > 0 for k in ("corr", "level1", "cholinv", "cisweep")),
+          f"a kernel of the main path never launched: {launches}")
+    c64 = ops.correlation(x).double().cpu().numpy()
+    for ell, cnt in certify(run, c64, m, alpha, threshold).items():
+        print(f"  certificate ℓ={ell}: {cnt['checked']} recorded sepsets pass in float64, "
+              f"{cnt['band']} of them in the τ band, {cnt['fp32_undecidable']} past it but "
+              "within their fp32 error bound (nearly collinear variables)")
+
+    # the same C on the card and on the host CPU: decisions may differ only
+    # through the ulps of rsqrtf/atanhf, so only inside the band
+    sx, _ = sample_gaussian_dag(SMALL["n"], SMALL["m"], SMALL["density"], seed=SMALL["seed"])
+    gpu = pc(sx, alpha=SMALL["alpha"])
+    sc = ops.correlation(torch.tensor(sx, dtype=torch.float32, device=dev))
+    cpu = pc_from_corr(sc.cpu(), SMALL["m"], alpha=SMALL["alpha"], device="cpu")
+    sc64 = sc.double().cpu().numpy()
+    n_diff, unexplained = explain_diffs(gpu, cpu, sc64, SMALL["m"], SMALL["alpha"], threshold)
+    same_cpdag = bool((gpu.cpdag == cpu.cpdag).all())
+    print(f"  n={SMALL['n']} CUDA vs CPU: {n_diff} edges differ ({unexplained} outside the τ band), "
+          f"cpdag equal {same_cpdag}, {gpu.levels_run} levels")
+    check(unexplained == 0, "CUDA and CPU runs differ outside the τ band")
+    check(same_cpdag or n_diff > 0, "CPDAGs differ although skeleton and sepsets agree")
+
+    sources = {"corr": ("src/repro_torch/csrc/corr.cu", "src/repro/kernels/corr.py:38"),
+               "level1": ("src/repro_torch/csrc/level1.cu", "src/repro/kernels/level1.py:78"),
+               "cholinv": ("src/repro_torch/csrc/cholinv.cu", "src/repro/kernels/cholinv.py:81"),
+               "cisweep": ("src/repro_torch/csrc/cisweep.cu", "src/repro/kernels/cisweep.py:50")}
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
+                    **rows[name]) for name, (src, rep) in sources.items()]
+    for k in kernels:
+        check(all(isinstance(v, (int, float)) and math.isfinite(v)
+                  for key, v in k.items() if key in ("ms", "plain_ms", "bound_ms")),
+              f"non-finite timing in {k}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except PhaseError as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,144 @@
+"""Gaussian conditional-independence primitives: Fisher z, the per-level
+threshold τ, the sample correlation matrix and a Gaussian-only
+``GaussianCITest`` (port of the Gaussian half of ``src/repro/core/cit.py``).
+
+τ = Φ⁻¹(1 − α/2) / √(m − ℓ − 3). The reference evaluates Φ⁻¹ (``ndtri``)
+in float32 through ``jax.scipy``, whose Cephes rational approximation
+differs from the correctly rounded value by an ulp at common α (at
+α = 0.01: 2.5758295 against scipy's 2.5758293). A one-ulp τ would shift
+decisions that sit exactly on the threshold, so :func:`_ndtri_f32`
+evaluates the same approximation in numpy float32, with the polynomial
+steps fused as XLA fuses them; scipy's float64 ``ndtri`` stays the
+yardstick it is tested against.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import ClassVar
+
+import numpy as np
+import torch
+
+from .validate import InsufficientSamplesError
+
+_F = np.float32
+# Cephes ndtri coefficients (the constants of the reference's jax.scipy)
+_P0 = (-5.99633501014107895267E1, 9.80010754185999661536E1, -5.66762857469070293439E1,
+       1.39312609387279679503E1, -1.23916583867381258016E0)
+_Q0 = (1.0, 1.95448858338141759834E0, 4.67627912898881538453E0, 8.63602421390890590575E1,
+       -2.25462687854119370527E2, 2.00260212380060660359E2, -8.20372256168333339912E1,
+       1.59056225126211695515E1, -1.18331621121330003142E0)
+_P1 = (4.05544892305962419923E0, 3.15251094599893866154E1, 5.71628192246421288162E1,
+       4.40805073893200834700E1, 1.46849561928858024014E1, 2.18663306850790267539E0,
+       -1.40256079171354495875E-1, -3.50424626827848203418E-2, -8.57456785154685413611E-4)
+_Q1 = (1.0, 1.57799883256466749731E1, 4.53907635128879210584E1, 4.13172038254672030440E1,
+       1.50425385692907503408E1, 2.50464946208309415979E0, -1.42182922854787788574E-1,
+       -3.80806407691578277194E-2, -9.33259480895457427372E-4)
+_P2 = (3.23774891776946035970E0, 6.91522889068984211695E0, 3.93881025292474443415E0,
+       1.33303460815807542389E0, 2.01485389549179081538E-1, 1.23716634817820021358E-2,
+       3.01581553508235416007E-4, 2.65806974686737550832E-6, 6.23974539184983293730E-9)
+_Q2 = (1.0, 6.02427039364742014255E0, 3.67983563856160859403E0, 1.37702099489081330271E0,
+       2.16236993594496635890E-1, 1.34204006088543189037E-2, 3.28014464682127739104E-4,
+       2.89247864745380683936E-6, 6.79019408009981274425E-9)
+
+
+def _polyval_f32(coef, x):
+    """Horner in float32 with each step fused (one rounding per y·x + c)."""
+    y = _F(0.0)
+    for c in coef:
+        y = _F(np.float64(y) * np.float64(x) + np.float64(_F(c)))
+    return y
+
+
+def _ndtri_f32(p: float) -> float:
+    """Φ⁻¹(p) for p ∈ (0, 1) as float32 Cephes, the reference's arithmetic."""
+    p = _F(p)
+    if p <= 0.0 or p >= 1.0:
+        raise ValueError(f"ndtri needs 0 < p < 1, got {p}")
+    mcp = _F(_F(1.0) - p) if p > _F(-np.expm1(-2.0)) else p
+    if mcp > _F(np.exp(-2.0)):
+        w = _F(mcp - _F(0.5))
+        ww = _F(w * w)
+        ratio = _F(_polyval_f32(_P0, ww) / _polyval_f32(_Q0, ww))
+        x = _F(w + _F(_F(w * ww) * ratio))
+        x = _F(x * _F(-np.sqrt(2.0 * np.pi)))
+    else:
+        z = _F(np.sqrt(_F(_F(-2.0) * _F(np.log(mcp)))))
+        first = _F(z - _F(_F(np.log(z)) / z))
+        iz = _F(_F(1.0) / z)
+        pc, qc = (_P2, _Q2) if z >= _F(8.0) else (_P1, _Q1)
+        second = _F(_F(_polyval_f32(pc, iz) / _polyval_f32(qc, iz)) / z)
+        x = _F(first - second)
+    return float(x if p > _F(1.0 - np.exp(-2.0)) else -x)
+
+
+def fisher_z(rho: torch.Tensor) -> torch.Tensor:
+    """|atanh ρ| with ρ clipped to ±0.9999999 (Eq. 6)."""
+    return torch.abs(torch.atanh(torch.clamp(rho, -0.9999999, 0.9999999)))
+
+
+def threshold(m: int, ell: int, alpha: float, *, insufficient: str = "raise") -> float:
+    """τ = Φ⁻¹(1 − α/2)/√(m − ℓ − 3) (Eq. 7), a host-side scalar.
+
+    ``insufficient`` picks what happens when m − ℓ − 3 ≤ 0: "raise"
+    (:class:`InsufficientSamplesError`) or "warn" (warn and clamp the
+    denominator to 1, as ``pc``'s level loop does)."""
+    denom = m - ell - 3
+    if denom <= 0:
+        if insufficient not in ("raise", "warn"):
+            raise ValueError(f"insufficient must be raise|warn, got {insufficient!r}")
+        msg = (
+            f"m={m} samples cannot support a level-{ell} Fisher-z test: the "
+            f"threshold needs m - ell - 3 > 0 (got {denom}). The clamped τ "
+            "rejects (keeps) every edge at this level. Collect more samples "
+            f"or cap max_level at {max(m - 4, 0)}."
+        )
+        if insufficient == "raise":
+            raise InsufficientSamplesError(msg)
+        warnings.warn(msg, stacklevel=2)
+        denom = 1
+    return _ndtri_f32(1.0 - alpha / 2.0) / float(denom) ** 0.5
+
+
+def correlation_from_samples(x: torch.Tensor) -> torch.Tensor:
+    """Sample correlation matrix, x: (m, n) → (n, n) fp32, clipped to
+    [-1, 1] with an exact unit diagonal — the plain definition the kernel
+    path (``kernels.ops.correlation``) is held against."""
+    x = x.to(torch.float32)
+    xc = x - torch.mean(x, dim=0, keepdim=True)
+    std = torch.sqrt(torch.mean(xc * xc, dim=0, keepdim=True))
+    xn = xc / torch.clamp(std, min=1e-30)
+    c = torch.clamp((xn.T @ xn) / x.shape[0], -1.0, 1.0)
+    c.fill_diagonal_(1.0)
+    return c
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianCITest:
+    """The Fisher-z partial-correlation test: the statistic is C, the
+    per-level scalar the threshold τ."""
+
+    m: int
+    alpha: float = 0.01
+    kind: ClassVar[str] = "gaussian"
+
+    def tau(self, ell: int, *, insufficient: str = "raise") -> float:
+        return threshold(self.m, ell, self.alpha, insufficient=insufficient)
+
+    def level0(self, stats, tau):
+        from . import levels as L
+
+        return L.level0(stats, tau)
+
+
+def resolve_citest(test, m: int, alpha: float) -> GaussianCITest:
+    """None / "gaussian" / a GaussianCITest → a GaussianCITest. The discrete
+    G² test is not ported yet (ROADMAP Queue 1 item 8)."""
+    if test is None or test == "gaussian":
+        return GaussianCITest(m=int(m), alpha=float(alpha))
+    if isinstance(test, GaussianCITest):
+        return test
+    if test == "discrete" or getattr(test, "kind", None) == "discrete":
+        raise ValueError("the discrete G² test is not ported yet (ROADMAP Queue 1 item 8)")
+    raise ValueError(f"test must be None, 'gaussian' or a GaussianCITest; got {test!r}")

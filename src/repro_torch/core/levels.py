@@ -1,0 +1,288 @@
+"""Per-level PC-stable machinery of the cuPC-S engine: port of the parts of
+``src/repro/core/levels.py`` that the "auto" engine runs.
+
+* ``level0``: the unconditional pass (paper Alg. 3).
+* ``plan_sets`` / ``gather_s``: unrank each chunk's conditioning sets and
+  gather what the CI math reads, with the full validity mask.
+* ``_winners`` / ``_global_commit`` / ``_commit``: the deterministic
+  (rank, endpoint-order) winner per undirected edge; ``commit_dense_l1``
+  replays that rule for the dense ℓ = 1 kernel's ``kwin``.
+* ``plan_level`` / ``run_level``: the bucketed chunk plan and the host
+  loop over rank chunks (the depth-1 path only).
+
+Ranks are int32 by default and int64 on request (``rank_dtype``); the
+capacity guard refuses a level at ``imax // 2`` as the reference does.
+Every integer reduction names its dtype: PyTorch would otherwise promote
+sums of bool or int32 to int64 and silently accept levels the reference
+refuses.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import imax as _imax
+from .cit import fisher_z
+from .combinadics import binom_table
+from .compact import compact_rows
+
+#: Cells a single chunk may materialise (the (n·T, n′, ℓ) gather dominates):
+#: 2^24 cells ≈ 64 MB of fp32, the reference's default.
+DEFAULT_CELL_BUDGET = 2**24
+_BIG = 2**30  # kwin's "no separator" value
+
+
+def _f32(x: float) -> float:
+    """A Python float exactly representable in fp32, so that comparing it
+    with an fp32 tensor means the same in any promotion."""
+    return float(np.float32(x))
+
+
+# --------------------------------------------------------------------- level 0
+def level0(c: torch.Tensor, tau: float) -> torch.Tensor:
+    """Adjacency after the unconditional tests: |atanh C_ij| > τ, i ≠ j."""
+    n = c.shape[0]
+    keep = fisher_z(c) > _f32(tau)
+    return keep & ~torch.eye(n, dtype=torch.bool, device=c.device)
+
+
+# ------------------------------------------------------- combination unranking
+@functools.lru_cache(maxsize=16)
+def _jtable(n_max: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Binomial table clipped to the rank dtype's capacity, on the device
+    (read-only; cached per level shape)."""
+    t = np.minimum(binom_table(n_max), _imax(dtype)).astype(np.int64)
+    return torch.as_tensor(t, dtype=dtype, device=device)
+
+
+def _unrank_dyn(t, n_dyn, n_max: int, ell: int, table):
+    """t-th lexicographic ℓ-subset of {0..n_dyn-1}, walking candidates
+    k = 0..n_max-1. t and n_dyn broadcast; returns (..., ℓ) int32 positions.
+    Ranks t ≥ C(n_dyn, ℓ) give junk the callers mask."""
+    dev = table.device
+    t = t.to(table.dtype)
+    n_dyn = torch.as_tensor(n_dyn, dtype=torch.int32, device=dev)
+    shape = torch.broadcast_shapes(t.shape, n_dyn.shape)
+    rem = t.expand(shape).clone()
+    n_dyn = n_dyn.expand(shape)
+    c = torch.zeros(shape, dtype=torch.int32, device=dev)
+    out = torch.zeros(shape + (ell,), dtype=torch.int32, device=dev)
+    slots = torch.arange(ell, dtype=torch.int32, device=dev)
+    width = table.shape[1]
+    flat = table.reshape(-1)
+    for k in range(n_max):
+        tail = torch.clamp(n_dyn - k - 1, 0, n_max)
+        slot = torch.clamp(ell - c - 1, 0, ell + 1)
+        cnt = flat[(tail * width + slot).long()]
+        open_ = (n_dyn > k) & (c < ell)
+        take = open_ & (rem < cnt)
+        out = torch.where(take[..., None] & (slots == c[..., None]), k, out)
+        rem = torch.where(open_ & ~take, rem - cnt, rem)
+        c = c + take.to(torch.int32)
+    return out
+
+
+# ------------------------------------------------------------- cuPC-S gathers
+def plan_sets(compact, counts, ranks, *, ell: int, n_max: int, n: int):
+    """Unrank one chunk's conditioning sets: (s_ids (n_l, T, ℓ) int32 clipped
+    to [0, n-1], valid_set (n_l, T) bool)."""
+    n_l, npr = compact.shape
+    n_chunk = ranks.shape[0]
+    table = _jtable(n_max, ranks.dtype, ranks.device)
+    total = table[torch.clamp(counts, 0, n_max).long(), ell]  # C(n'_i, ℓ)
+    valid_set = ranks[None, :] < total[:, None]
+    pos = _unrank_dyn(ranks[None, :], counts[:, None], npr, ell, table)
+    pos = torch.where(valid_set[..., None], pos, 0)
+    s_ids = torch.gather(compact, 1, pos.reshape(n_l, -1).long()).reshape(n_l, n_chunk, ell)
+    return torch.clamp(s_ids, 0, n - 1), valid_set
+
+
+def _set_mask(adj, compact, rows, s_ids, valid_set, n):
+    """Validity mask (n_l, T, n′): rank in range, j ∉ S, edge alive."""
+    j_ids = torch.clamp(compact, 0, n - 1)
+    in_s = (j_ids[:, None, :, None] == s_ids[:, :, None, :]).any(dim=-1)
+    alive = adj[rows[:, None].long(), j_ids.long()] & (compact >= 0)
+    return valid_set[:, :, None] & ~in_s & alive[:, None, :]
+
+
+def gather_s(c, adj, compact, counts, rows, ranks, *, ell: int, n_max: int):
+    """The cuPC-S worklist prologue: returns (m2 (n_l,T,ℓ,ℓ), ci_s (n_l,T,ℓ),
+    cj_s (n_l,T,n′,ℓ), cij (n_l,T,n′), mask (n_l,T,n′), s_ids (n_l,T,ℓ))."""
+    n = c.shape[0]
+    n_l, npr = compact.shape
+    n_chunk = ranks.shape[0]
+    s_ids, valid_set = plan_sets(compact, counts, ranks, ell=ell, n_max=n_max, n=n)
+    s = s_ids.long()
+    r = rows.long()
+    j_ids = torch.clamp(compact, 0, n - 1).long()
+    m2 = c[s[..., :, None], s[..., None, :]]
+    ci_s = c[r[:, None, None], s]
+    cj_s = c[j_ids[:, None, :, None], s[:, :, None, :]]
+    cij = c[r[:, None], j_ids][:, None, :].expand(n_l, n_chunk, npr)
+    mask = _set_mask(adj, compact, rows, s_ids, valid_set, n)
+    return m2, ci_s, cj_s, cij, mask, s_ids
+
+
+# ---------------------------------------------------------------------- commit
+def _winners(sep_found, ranks, s_ids):
+    """Per-(row, slot) least separating rank of the chunk: (t_win (n_l, n′),
+    removed_slot (n_l, n′) bool, s_win (n_l, n′, ℓ))."""
+    n_l = sep_found.shape[0]
+    big = _imax(ranks.dtype)
+    rank_mat = torch.where(sep_found, ranks[None, :, None], big)
+    t_win, t_arg = torch.min(rank_mat, dim=1)
+    removed_slot = t_win < big
+    loc = torch.arange(n_l, device=ranks.device)
+    return t_win, removed_slot, s_ids[loc[:, None], t_arg]
+
+
+def _commit_key_mat(compact_full, rows_full, t_win, removed_slot, n):
+    """Scatter per-(row, slot) winner keys rank·2 + endpoint-order into the
+    dense (n, n) key matrix (imax elsewhere), by a min-reduction."""
+    rd = t_win.dtype
+    big = _imax(rd)
+    j_ids = torch.clamp(compact_full, 0, n - 1)
+    order_bit = (rows_full[:, None] > j_ids).to(rd)
+    key = torch.where(removed_slot, t_win * 2 + order_bit, big)
+    idx = (rows_full[:, None].long() * n + j_ids.long()).reshape(-1)
+    key_mat = torch.full((n * n,), big, dtype=rd, device=t_win.device)
+    key_mat = key_mat.scatter_reduce(0, idx, key.reshape(-1), reduce="amin")
+    return j_ids, key_mat.reshape(n, n)
+
+
+def _global_commit(adj, sep, compact_full, rows_full, t_win, removed_slot, s_win, ell):
+    """Apply a chunk's removals and sepsets to the global (adj, sep). Only
+    winner slots scatter sepsets; losers write the dump column n, the one
+    place duplicate writes may land."""
+    n = adj.shape[0]
+    big = _imax(t_win.dtype)
+    j_ids, key_mat = _commit_key_mat(compact_full, rows_full, t_win, removed_slot, n)
+    j_write = torch.where(removed_slot, j_ids, n)
+    s_mat = torch.zeros((n, n + 1, ell), dtype=torch.int32, device=adj.device)
+    s_mat[rows_full[:, None].long(), j_write.long()] = s_win.to(torch.int32)
+    s_mat = s_mat[:, :n]
+    key_t = key_mat.T
+    newly_removed = torch.minimum(key_mat, key_t) < big
+    use_own = key_mat <= key_t
+    s_final = torch.where(use_own[..., None], s_mat, s_mat.transpose(0, 1))
+    adj_new = adj & ~newly_removed
+    lmax = sep.shape[-1]
+    write = (newly_removed & adj)[..., None]
+    slot_ok = torch.arange(lmax, device=adj.device) < ell
+    padded = F.pad(s_final, (0, lmax - ell), value=-1)
+    return adj_new, torch.where(write & slot_ok, padded, sep)
+
+
+def _commit(adj, sep, compact, sep_found, ranks, s_ids, ell):
+    """sep_found (n, T, n′) of a chunk over every row → updated (adj, sep)."""
+    n = adj.shape[0]
+    rows = torch.arange(n, dtype=torch.int32, device=adj.device)
+    t_win, removed_slot, s_win = _winners(sep_found, ranks, s_ids)
+    return _global_commit(adj, sep, compact, rows, t_win, removed_slot, s_win, ell)
+
+
+def commit_dense_l1(adj, sep, kwin, rank_dtype: torch.dtype = torch.int32):
+    """Commit the dense ℓ = 1 kernel's kwin: the rank of kwin[i, j] inside
+    row i's sorted neighbour list is the combo-rank the chunked engine
+    would find, so the same (rank·2 + endpoint-order) rule per undirected
+    edge gives the chunked engine's sepsets."""
+    n = adj.shape[0]
+    rd = rank_dtype
+    big = _imax(rd)
+    adji = adj.to(rd)
+    prefix = torch.cumsum(adji, dim=1, dtype=rd) - adji  # exclusive rank of k in row
+    kwin_c = torch.clamp(kwin, 0, n - 1).to(torch.int32)
+    rank = torch.gather(prefix, 1, kwin_c.long())
+    rows = torch.arange(n, dtype=torch.int32, device=adj.device)
+    order_bit = (rows[:, None] > rows[None, :]).to(rd)
+    own = (kwin < _BIG) & adj
+    key = torch.where(own, rank * 2 + order_bit, big)
+    newly_removed = (torch.minimum(key, key.T) < big) & adj
+    use_own = key <= key.T
+    s_win = torch.where(use_own, kwin_c, kwin_c.T)
+    sep_new = sep.clone()
+    sep_new[:, :, 0] = torch.where(newly_removed, s_win, sep[:, :, 0])
+    return adj & ~newly_removed, sep_new
+
+
+# -------------------------------------------------------------- chunk planning
+def _check_rank_capacity(total: int, n_chunk: int, ell: int, rank_dtype: torch.dtype):
+    """Refuse a level whose ranks the dtype cannot carry: commit keys are
+    rank·2 + bit against the imax sentinel, so the capacity is imax // 2.
+    Returns n_chunk, halved until every rank a chunk touches fits."""
+    big = _imax(rank_dtype)
+    if total > big // 2:
+        name = str(rank_dtype).removeprefix("torch.")
+        raise ValueError(
+            f"level with {total} conditioning sets (ell={ell}) exceeds the "
+            f"rank capacity of {name}: the commit-key capacity is {big // 2} "
+            f"(keys are rank*2+bit vs the {big} sentinel); pass "
+            "wide_ranks=True for int64 ranks, or cap max_level"
+        )
+    while n_chunk > 1 and total + n_chunk > big:
+        n_chunk //= 2
+    return n_chunk
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 if x <= 1 else 1 << (x - 1).bit_length()
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 if x <= 1 else 1 << (x.bit_length() - 1)
+
+
+def bucket_npr(npr: int, lane: int = 128) -> int:
+    """n′ rounded up to a power of two below ``lane``, to lane multiples
+    above, so level shapes recur across levels and runs."""
+    if npr <= 1:
+        return npr
+    return _pow2_ceil(npr) if npr < lane else -(-npr // lane) * lane
+
+
+def plan_level(npr: int, ell: int, n_rows: int, cell_budget: int = DEFAULT_CELL_BUDGET,
+               n_cols: int | None = None, rank_dtype: torch.dtype = torch.int32):
+    """One cuPC-S level's shapes: (npr_bucket, n_chunk, total_ranks). n′ is
+    bucketed and the chunk is a power of two sized so the (n·T, n′, ℓ)
+    gather stays within ``cell_budget``, as the reference's bucketed plan."""
+    npr_b = bucket_npr(npr)
+    if n_cols is not None:
+        npr_b = min(npr_b, n_cols)
+    total = math.comb(npr, ell)
+    per_rank_cells = n_rows * npr_b * max(ell, 1) * max(ell, 1)
+    budget_chunk = max(1, cell_budget // max(per_rank_cells, 1))
+    n_chunk = min(_pow2_ceil(total), _pow2_floor(budget_chunk))
+    return npr_b, _check_rank_capacity(total, n_chunk, ell, rank_dtype), total
+
+
+# ------------------------------------------------------------ host level loop
+def run_level(c, adj, sep, ell: int, tau: float, *, chunk_fn,
+              cell_budget: int = DEFAULT_CELL_BUDGET, rank_dtype: torch.dtype = torch.int32):
+    """Run one PC-stable level as a host loop over rank chunks, each
+    ``chunk_fn(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk,
+    n_max)`` → (adj, sep). Edges removed by a chunk drop out of later
+    chunks through the alive mask. Returns (adj, sep, stats)."""
+    n = adj.shape[0]
+    npr = int(adj.sum(dim=1, dtype=torch.int32).max()) if n else 0
+    if npr - 1 < ell:
+        return adj, sep, {"skipped": True, "chunks": 0, "dispatches": 0,
+                          "npr": npr, "engine": "S"}
+    npr_b, n_chunk, total = plan_level(npr, ell, n, cell_budget=cell_budget, n_cols=n,
+                                       rank_dtype=rank_dtype)
+    compact, counts = compact_rows(adj, n_prime=npr_b)
+    chunks = 0
+    for t0 in range(0, total, n_chunk):
+        t0_t = torch.tensor(t0, dtype=rank_dtype, device=adj.device)
+        adj, sep = chunk_fn(c, adj, sep, compact, counts, t0_t, tau,
+                            ell=ell, n_chunk=n_chunk, n_max=npr_b)
+        chunks += 1
+    return adj, sep, {
+        "skipped": False, "chunks": chunks, "npr": npr, "npr_bucket": npr_b,
+        "n_chunk": n_chunk, "total_sets": total, "engine": "S",
+        "compile_key": (ell, n_chunk, npr_b), "pipeline_depth": 1,
+        "dispatches": chunks,
+    }

@@ -1,0 +1,130 @@
+"""Admission checks for samples and correlation matrices, with the typed
+errors of ``src/repro/core/validate.py`` (the subset ``pc`` and
+``pc_from_corr`` call). All checks are host-side numpy, before any work is
+sent to the card.
+"""
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+
+class ValidationError(ValueError):
+    """Base class of every admission failure; ``code`` is a stable tag."""
+
+    code = "invalid"
+
+
+class NonFiniteDataError(ValidationError):
+    code = "non_finite"
+
+
+class ConstantColumnError(ValidationError):
+    code = "constant_column"
+
+
+class RankDeficientError(ValidationError):
+    code = "rank_deficient"
+
+
+class BadCorrelationError(ValidationError):
+    code = "bad_correlation"
+
+
+class InsufficientSamplesError(ValidationError):
+    """A Fisher-z threshold asked for at a level the sample count cannot
+    support (m − ℓ − 3 ≤ 0)."""
+
+    code = "insufficient_samples"
+
+
+def _as_host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _check_m(m: int, n: int, max_level: int | None):
+    lmax = 3 if max_level is None else int(max_level)
+    if m <= lmax + 3:
+        raise RankDeficientError(
+            f"m={m} samples cannot support conditional-independence tests up "
+            f"to level {lmax}: the Fisher-z threshold needs m - level - 3 > 0 "
+            f"(got {m - lmax - 3}). Collect more samples or lower max_level "
+            f"to at most {max(m - 4, 0)}."
+        )
+    if m < n:
+        msg = (
+            f"m={m} samples < n={n} variables: the sample correlation matrix "
+            "is rank-deficient, so conditioning sets larger than the true "
+            "rank are tested against a singular block (regularised, but "
+            "biased). Prefer more samples or a lower max_level."
+        )
+        warnings.warn(msg, stacklevel=3)
+
+
+def validate_samples(x, max_level: int | None = None) -> tuple[int, int]:
+    """Validate a raw sample matrix x: (m, n). Returns (m, n)."""
+    x = _as_host(x)
+    if x.ndim != 2:
+        raise ValidationError(f"expected a (m, n) sample matrix; got shape {x.shape}")
+    m, n = int(x.shape[0]), int(x.shape[1])
+    finite = np.isfinite(x)
+    if not finite.all():
+        bad = np.argwhere(~finite)
+        r, c = int(bad[0][0]), int(bad[0][1])
+        raise NonFiniteDataError(
+            f"samples contain {len(bad)} non-finite value(s) (first at row "
+            f"{r}, column {c}: {x[r, c]!r}). Impute or drop the affected "
+            "rows/columns before calling pc()."
+        )
+    span = x.max(axis=0) - x.min(axis=0)
+    const = np.flatnonzero(span == 0)
+    if const.size:
+        cols = ", ".join(str(int(k)) for k in const[:8])
+        more = "" if const.size <= 8 else f" (+{const.size - 8} more)"
+        raise ConstantColumnError(
+            f"column(s) [{cols}]{more} are constant: correlation with a "
+            "zero-variance variable is undefined. Drop the constant columns "
+            "or add measurement noise before calling pc()."
+        )
+    _check_m(m, n, max_level)
+    return m, n
+
+
+def validate_corr(c, m: int, max_level: int | None = None) -> int:
+    """Validate a correlation matrix c: (n, n) plus its sample count m.
+    Returns n."""
+    c = _as_host(c)
+    if c.ndim != 2 or c.shape[0] != c.shape[1]:
+        raise BadCorrelationError(
+            f"expected a square (n, n) correlation matrix; got shape {c.shape}")
+    n = int(c.shape[0])
+    finite = np.isfinite(c)
+    if not finite.all():
+        bad = np.argwhere(~finite)
+        i, j = int(bad[0][0]), int(bad[0][1])
+        raise NonFiniteDataError(
+            f"correlation matrix contains {len(bad)} non-finite value(s) "
+            f"(first at C[{i}, {j}] = {c[i, j]!r})."
+        )
+    if not np.allclose(c, c.T, atol=1e-4, rtol=0.0):
+        ij = np.unravel_index(np.abs(c - c.T).argmax(), c.shape)
+        raise BadCorrelationError(
+            f"correlation matrix is not symmetric (max |C - Cᵀ| at "
+            f"{tuple(int(v) for v in ij)}: {abs(c - c.T).max():.3g})."
+        )
+    diag = np.diagonal(c)
+    if np.abs(diag - 1.0).max(initial=0.0) > 1e-3:
+        k = int(np.abs(diag - 1.0).argmax())
+        raise BadCorrelationError(
+            f"correlation diagonal must be 1 (C[{k}, {k}] = {diag[k]:.6g}).")
+    if np.abs(c).max(initial=0.0) > 1.0 + 1e-5:
+        ij = np.unravel_index(np.abs(c).argmax(), c.shape)
+        raise BadCorrelationError(
+            f"correlation entries must lie in [-1, 1]; C{tuple(int(v) for v in ij)} "
+            f"= {c[ij]:.6g}.")
+    _check_m(int(m), n, max_level)
+    return n

@@ -1,0 +1,70 @@
+"""Public wrappers around the hand kernels, with the contracts of
+``src/repro/kernels/ops.py``: ``correlation``, ``level1_dense``,
+``ci_shared`` and ``chunk_s_kernel``.
+
+Each wrapper runs its CUDA kernel for CUDA tensors and the kernel's plain
+PyTorch version for CPU tensors. Unlike the reference, nothing is padded
+to TPU tiles: the kernels mask their own ragged edges.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import cholinv as _cholinv
+from . import cisweep as _cisweep
+from . import corr as _corr
+from . import level1 as _level1
+
+
+def standardize(x: torch.Tensor) -> torch.Tensor:
+    """(m, n) samples → zero-mean, unit-std fp32 columns (population std)."""
+    x = x.to(torch.float32)
+    xc = x - torch.mean(x, dim=0, keepdim=True)
+    std = torch.sqrt(torch.mean(xc * xc, dim=0, keepdim=True))
+    return xc / torch.clamp(std, min=1e-30)
+
+
+def correlation(x: torch.Tensor) -> torch.Tensor:
+    """Correlation matrix (n, n) fp32 of samples x (m, n) through the GEMM
+    kernel, clipped to [-1, 1] with an exact unit diagonal."""
+    xn = standardize(x).contiguous()
+    c = torch.clamp(_corr.corr_matmul(xn), -1.0, 1.0)
+    c.fill_diagonal_(1.0)
+    return c
+
+
+def level1_dense(c: torch.Tensor, adj: torch.Tensor, tau: float):
+    """(removed (n, n) bool — a separator in adj(i) ∪ adj(j); kwin (n, n)
+    int32 — least separating k ∈ adj(i) \\ {j}, else 2^30)."""
+    return _level1.level1_dense_kernel(c.contiguous(), adj.contiguous(), tau)
+
+
+def ci_shared(m2, ci_s, cj_s, cij, mask, tau: float, *, ell: int) -> torch.Tensor:
+    """Batch-first: m2 (B,ℓ,ℓ), ci_s (B,ℓ), cj_s (B,P,ℓ), cij/mask (B,P)
+    → independence ∧ mask (B, P) bool, through cholinv then cisweep."""
+    if m2.shape[-1] != ell:
+        raise ValueError(f"m2 is {m2.shape[-1]}×{m2.shape[-1]}, expected ℓ = {ell}")
+    f32 = torch.float32
+    g, u, var = _cholinv.cholinv(m2.to(f32).contiguous(), ci_s.to(f32).contiguous())
+    return _cisweep.cisweep(g, u, var, cj_s.to(f32).contiguous(), cij.to(f32).contiguous(),
+                            mask.contiguous(), tau)
+
+
+def chunk_s_kernel(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max):
+    """Same contract as the reference ``chunk_s_kernel``: combo-ranks
+    [t0, t0 + n_chunk) of every row, gathered by ``levels.gather_s``,
+    tested by cholinv + cisweep, committed by ``levels._commit``; returns
+    the updated (adj, sep)."""
+    from repro_torch.core import levels as L
+
+    n, npr = compact.shape
+    rows = torch.arange(n, dtype=torch.int32, device=c.device)
+    ranks = t0 + torch.arange(n_chunk, dtype=t0.dtype, device=c.device)
+    m2, ci_s, cj_s, cij, mask, s_ids = L.gather_s(
+        c, adj, compact, counts, rows, ranks, ell=ell, n_max=n_max)
+    bsz = n * n_chunk
+    sep_found = ci_shared(
+        m2.reshape(bsz, ell, ell), ci_s.reshape(bsz, ell), cj_s.reshape(bsz, npr, ell),
+        cij.reshape(bsz, npr), mask.reshape(bsz, npr), tau, ell=ell,
+    ).reshape(n, n_chunk, npr)
+    return L._commit(adj, sep, compact, sep_found, ranks, s_ids, ell)
