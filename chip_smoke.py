@@ -1,28 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's two paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Phases, each of which exits non-zero on failure:
 
 1. build: compile ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a;
-2. kernels: each hand kernel against its plain PyTorch version on the
-   card, at the shapes the main path gives it on the paper's NCI-60
-   workload (n = 1190 variables, m = 47 samples, density 0.02,
-   α = 0.01; seeded Gaussian-DAG stand-in data): corr (plus the §5.6
-   shape m = 10000, n = 1000), level1 on the level-0 adjacency, cholinv
-   and cisweep on the first ℓ = 2 chunk. Decisions may differ only in
-   cells whose statistic lies within τ ± 1e-4 (found by re-running the
-   plain version at τ ± 1e-4); cholinv must agree to rtol 1e-5,
-   atol 1e-6; corr to atol 2e-6;
-3. end to end: ``pc(x)`` on NCI-60 with the launch counts reset just
-   before and read just after (every kernel must have launched), a
-   float64 certificate of every recorded sepset, and equality with the
-   port's own CPU run on an n = 200 instance fed the same C. A test
-   whose float64 statistic lies past τ by less than the forward-error
-   bound of its fp32 evaluation (see ``z_of``) is not decidable in fp32,
-   the reference's arithmetic as much as the port's; the certificate
-   counts such tests and does not fail them.
+2. Gaussian kernels: each hand kernel against its plain PyTorch version
+   on the card, at the shapes the Gaussian main path gives it on the
+   paper's NCI-60 workload (n = 1190 variables, m = 47 samples, density
+   0.02, α = 0.01; seeded Gaussian-DAG stand-in data): corr (plus the
+   §5.6 shape m = 10000, n = 1000), level0 on C (exact), level1 on the
+   level-0 adjacency, cholinv and cisweep on the first ℓ = 2 chunk.
+   Decisions may differ only in cells whose statistic lies within
+   τ ± 1e-4 (found by re-running the plain version at τ ± 1e-4); cholinv
+   must agree to rtol 1e-5, atol 1e-6; corr to atol 2e-6;
+3. Gaussian end to end: ``pc(x)`` on NCI-60 with the launch counts reset
+   just before and read just after (every kernel of the path must have
+   launched), a float64 certificate of every recorded sepset, and
+   equality with the port's own CPU run on an n = 200 instance fed the
+   same C. A test whose float64 statistic lies past τ by less than the
+   forward-error bound of its fp32 evaluation (see ``z_of``) is not
+   decidable in fp32, the reference's arithmetic as much as the port's;
+   the certificate counts such tests and does not fail them;
+4. discrete kernel: gsq against its plain version, bitwise, at the level-0
+   shape of a bnlearn-PIGS-shaped stand-in (n = 441 ternary variables,
+   m = 5000 samples, density 0.0061 ≈ 592 arcs, α = 0.01, seeded
+   Dirichlet-CPT DAG data) and on its first real ℓ = 2 chunk;
+5. discrete end to end: ``pc(x, test="discrete")`` on that stand-in with
+   the counts reset just before and read just after (gsq must have
+   launched), per-level times, and a float64 certificate (scipy's χ²
+   tail) of every recorded sepset at ℓ ≥ 1: p ≥ α, except p within
+   |p/α − 1| ≤ 1e-4 (the p band) or within the first-order error bound of
+   the fp32 G² (see ``g2_of``), both counted; then equality with the
+   port's CPU run on an n = 40 instance outside the p band, and with the
+   float64 serial oracle's skeleton on an n = 12 instance.
 
 The last two lines are a ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -45,9 +57,21 @@ FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BAND = 1e-4
 NCI60 = dict(n=1190, m=47, density=0.02, alpha=0.01, seed=0)
 SMALL = dict(n=200, m=47, density=0.02, alpha=0.01, seed=1)
+# bnlearn's PIGS network: 441 variables, all ternary, 592 arcs
+PIGS = dict(n=441, m=5000, density=0.0061, arity=3, alpha=0.01, seed=0)
+D_SMALL = dict(n=40, m=2000, density=0.1, arity=3, alpha=0.01, seed=1)
+D_ORACLE = dict(n=12, m=600, density=0.3, arity=3, alpha=0.05, seed=4)
+P_BAND = 1e-4
+U32 = 2.0**-24
 # fp32 operations per tested level-1 cell: num 2, den 5, max 1, rsqrt 1,
 # mul 1, clip 2, atanh ≈ 5 (sub, div, log1p, mul), abs+compare 1
 L1_OPS_PER_CELL = 18
+# per level-0 cell: clip 2, atanh ≈ 5, abs 1, compare 1, i ≠ j and the and 2
+LEVEL0_OPS_PER_CELL = 11
+# per G² term: 4 logs ≈ 4 × 5, max 4, add/sub 3, mul 1, select and the
+# in-order add 2; per sample: bounds check and count 2
+G2_OPS_PER_TERM = 30
+G2_OPS_PER_SAMPLE = 2
 
 
 class PhaseError(RuntimeError):
@@ -202,6 +226,100 @@ def explain_diffs(a, b, c64, m, alpha, threshold):
     return int(differ.sum()), unexplained
 
 
+def discrete_codes(sample_discrete_dag, cfg):
+    """Seeded categorical samples for ``cfg``; a column the generator left
+    constant gets one flipped code, as the repository's test fixtures do
+    (validation refuses one-level columns)."""
+    x, dag = sample_discrete_dag(cfg["n"], cfg["m"], cfg["density"], cfg["arity"],
+                                 seed=cfg["seed"])
+    for k in range(cfg["n"]):
+        if (x[:, k] == x[0, k]).all():
+            x[0, k] = (x[1, k] + 1) % cfg["arity"]
+    return x, dag
+
+
+def g2_of(codes, arities, r, i, j, s):
+    """(p of the G² test (i, j | S) in float64, and a first-order bound on
+    how far the port's fp32 p can stray from it).
+
+    The fp32 G² sums K = r^(ℓ+2) terms N·(((log N + log N_c) − log N_a) −
+    log N_b): each log is within an ulp, each add and the product round
+    once, and the in-order sum of K terms adds at most K·u·Σ|term|, so
+    e_G² ≤ 2·(4u·Σ N·(|log N| + |log N_c| + |log N_a| + |log N_b|) +
+    (K + 1)·u·Σ|term|), and p moves by at most chi2.pdf(G², dof)·e_G².
+    Tables with large, nearly cancelling terms have a large bound."""
+    import numpy as np
+    from scipy.stats import chi2
+
+    ri, rj = int(arities[i]), int(arities[j])
+    q = 1
+    code = np.zeros(codes.shape[0], dtype=np.int64)
+    for k in s:
+        code = code * int(arities[k]) + codes[:, k]
+        q *= int(arities[k])
+    code = (code * ri + codes[:, i]) * rj + codes[:, j]
+    tab = np.bincount(code, minlength=q * ri * rj).astype(np.float64).reshape(q, ri, rj)
+    logs = [np.log(np.maximum(v, 1.0)) for v in
+            (tab, tab.sum(axis=(1, 2), keepdims=True), tab.sum(axis=2, keepdims=True),
+             tab.sum(axis=1, keepdims=True))]
+    term = np.where(tab > 0, tab * (logs[0] + logs[1] - logs[2] - logs[3]), 0.0)
+    g2 = 2.0 * float(term.sum())
+    dof = max((ri - 1) * (rj - 1) * q, 1)
+    k_total = r ** (len(s) + 2)
+    e_g2 = 2.0 * (4 * U32 * float((tab * sum(np.abs(v) for v in logs)).sum())
+                  + (k_total + 1) * U32 * float(np.abs(term).sum()))
+    return float(chi2.sf(g2, dof)), float(chi2.pdf(g2, dof)) * e_g2
+
+
+def certify_g2(run, codes, r, alpha):
+    """Every sepset recorded at ℓ ≥ 1 must pass its G² test in float64:
+    p ≥ α, or p in the band |p/α − 1| ≤ 1e-4, or (fp32 cannot decide it)
+    within the band plus its fp32 error bound. Returns per-ℓ counts; raises
+    on a failure."""
+    arities = codes.max(axis=0) + 1
+    counts = {}
+    for (i, j), ids in run.sepset_dict().items():
+        if not ids:
+            continue
+        p, dp = g2_of(codes, arities, r, i, j, ids)
+        cnt = counts.setdefault(len(ids), dict(checked=0, band=0, fp32_undecidable=0))
+        cnt["checked"] += 1
+        if p >= alpha:
+            continue
+        if p >= alpha * (1 - P_BAND):
+            cnt["band"] += 1
+        elif p >= alpha * (1 - P_BAND) - dp:
+            cnt["fp32_undecidable"] += 1
+        else:
+            raise PhaseError(f"G² certificate failed: ({i}, {j} | {ids}) has float64 p = {p:.6g} "
+                             f"< α = {alpha} beyond the band and its fp32 bound {dp:.3g}")
+    return dict(sorted(counts.items()))
+
+
+def explain_g2_diffs(a, b, codes, r, alpha):
+    """Edges where two discrete runs differ in adjacency or sepset; each
+    must be explained by a test of either run's sepset (the empty set for
+    a level-0 removal) whose float64 p lies within the p band (plus its
+    fp32 bound) of α."""
+    import numpy as np
+
+    arities = codes.max(axis=0) + 1
+    n = a.adj.shape[0]
+    iu, ju = np.triu_indices(n, 1)
+    differ = (a.adj[iu, ju] != b.adj[iu, ju]) | (a.sepsets[iu, ju] != b.sepsets[iu, ju]).any(1)
+    unexplained = 0
+    for i, j in zip(iu[differ], ju[differ]):
+        near = False
+        for run in (a, b):
+            if run.adj[i, j]:
+                continue
+            s = run.sepsets[i, j]
+            p, dp = g2_of(codes, arities, r, i, j, tuple(int(v) for v in s[s >= 0]))
+            near |= abs(p - alpha) <= alpha * P_BAND + dp
+        unexplained += not near
+    return int(differ.sum()), unexplained
+
+
 def main() -> int:
     import torch
 
@@ -212,22 +330,14 @@ def main() -> int:
         print(f"chip_smoke: the repro_torch package is missing under {SRC}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    warnings.simplefilter("ignore", UserWarning)  # m < n is this workload's regime
+    warnings.simplefilter("ignore", UserWarning)  # m < n is NCI-60's regime
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    import numpy as np
-
-    from repro_torch import pc, pc_from_corr
-    from repro_torch.core import engines, levels as L
-    from repro_torch.core.cit import threshold
-    from repro_torch.core.compact import compact_rows
-    from repro_torch.data.synthetic_dag import sample_gaussian_dag
-    from repro_torch.kernels import build, cholinv, cisweep, corr, level1, ops
+    from repro_torch.kernels import build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
-    print(smi.stdout.strip())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
@@ -240,13 +350,45 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  ptxas " + line.strip())
 
+    rows, launches = {}, {}
+    gaussian(torch, rows, launches)
+    discrete(torch, rows, launches)
+
+    sources = {"corr": ("src/repro_torch/csrc/corr.cu", "src/repro/kernels/corr.py:38"),
+               "level0": ("src/repro_torch/csrc/level0.cu", "src/repro/kernels/level0.py:28"),
+               "level1": ("src/repro_torch/csrc/level1.cu", "src/repro/kernels/level1.py:78"),
+               "cholinv": ("src/repro_torch/csrc/cholinv.cu", "src/repro/kernels/cholinv.py:81"),
+               "cisweep": ("src/repro_torch/csrc/cisweep.cu", "src/repro/kernels/cisweep.py:50"),
+               "gsq": ("src/repro_torch/csrc/gsq.cu", "src/repro/kernels/gsq.py:129")}
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
+                    **rows[name]) for name, (src, rep) in sources.items()]
+    for k in kernels:
+        check(all(isinstance(v, (int, float)) and math.isfinite(v)
+                  for key, v in k.items() if key in ("ms", "plain_ms", "bound_ms")),
+              f"non-finite timing in {k}")
+    print(smi.stdout.strip())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def gaussian(torch, rows, launches):
+    """Phases 2 and 3: the Gaussian kernels and ``pc(x)`` on NCI-60."""
+    from repro_torch import pc, pc_from_corr
+    from repro_torch.core import engines, levels as L
+    from repro_torch.core.cit import threshold
+    from repro_torch.core.compact import compact_rows
+    from repro_torch.data.synthetic_dag import sample_gaussian_dag
+    from repro_torch.kernels import build, cholinv, cisweep, corr, level0, level1, ops
+
     dev = torch.device("cuda")
     cfg = NCI60
     x_np, _ = sample_gaussian_dag(cfg["n"], cfg["m"], cfg["density"], seed=cfg["seed"])
     x = torch.tensor(x_np, dtype=torch.float32, device=dev)
     m, n, alpha = cfg["m"], cfg["n"], cfg["alpha"]
     tau = [threshold(m, ell, alpha) for ell in range(3)]
-    rows = {}
 
     # -------------------------------------------------------------- kernels
     # corr, at the main path's shape and at the paper's §5.6 shape
@@ -269,9 +411,19 @@ def main() -> int:
             rows["corr"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=lib_ms)
 
+    # level0 on C, exact against its plain version (core/levels.level0)
     c = ops.correlation(x)
     adj0 = L.level0(c, tau[0])
-    print(f"level 0: {int(adj0.sum()) // 2} edges, max degree {int(adj0.sum(1).max())}")
+    n_diff = int((level0.level0_kernel(c, tau[0]) != adj0).sum())
+    k_ms = cuda_ms(torch, lambda: level0.level0_kernel(c, tau[0]))
+    p_ms = cuda_ms(torch, lambda: L.level0(c, tau[0]))
+    b_ms, b_by = bound(5 * n * n, LEVEL0_OPS_PER_CELL * n * n)
+    print(f"kernel level0 n={n}: {int(adj0.sum()) // 2} edges, max degree "
+          f"{int(adj0.sum(1).max())}; differs from the plain version in {n_diff} cells (exact "
+          f"required); kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {b_ms:.5f} ms ({b_by})")
+    check(n_diff == 0, f"level0 differs from its plain version in {n_diff} cells")
+    rows["level0"] = dict(max_abs_err=float(n_diff), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None)
 
     # level1 on the level-0 adjacency
     rem_k, kwin_k = level1.level1_dense_kernel(c, adj0, tau[1])
@@ -367,7 +519,8 @@ def main() -> int:
     run = pc(x_np, alpha=alpha)
     torch.cuda.synchronize()
     e2e_s = time.monotonic() - t0
-    launches = dict(build.LAUNCHES)
+    path = ("corr", "level0", "level1", "cholinv", "cisweep")
+    launches.update({k: build.LAUNCHES[k] for k in path})
     check((run.adj == first.adj).all() and (run.sepsets == first.sepsets).all(),
           "two runs of pc(x) on the card disagree")
     print(f"e2e pc(x) NCI-60 n={n} m={m}: {e2e_s:.3f} s (first run {first_s:.3f} s), "
@@ -376,9 +529,9 @@ def main() -> int:
     for st in run.level_stats:
         print(f"  level {st['level']}: engine {st['engine']} max degree {st['npr']} "
               f"chunks {st['chunks']} {run.timings_s.get('level%d' % st['level'], 0.0):.4f} s")
-    print(f"  launches {json.dumps(launches)}")
-    check(all(launches[k] > 0 for k in ("corr", "level1", "cholinv", "cisweep")),
-          f"a kernel of the main path never launched: {launches}")
+    print(f"  launches {json.dumps(build.LAUNCHES)}")
+    check(all(launches[k] > 0 for k in path),
+          f"a kernel of the Gaussian path never launched: {build.LAUNCHES}")
     c64 = ops.correlation(x).double().cpu().numpy()
     for ell, cnt in certify(run, c64, m, alpha, threshold).items():
         print(f"  certificate ℓ={ell}: {cnt['checked']} recorded sepsets pass in float64, "
@@ -399,22 +552,117 @@ def main() -> int:
     check(unexplained == 0, "CUDA and CPU runs differ outside the τ band")
     check(same_cpdag or n_diff > 0, "CPDAGs differ although skeleton and sepsets agree")
 
-    sources = {"corr": ("src/repro_torch/csrc/corr.cu", "src/repro/kernels/corr.py:38"),
-               "level1": ("src/repro_torch/csrc/level1.cu", "src/repro/kernels/level1.py:78"),
-               "cholinv": ("src/repro_torch/csrc/cholinv.cu", "src/repro/kernels/cholinv.py:81"),
-               "cisweep": ("src/repro_torch/csrc/cisweep.cu", "src/repro/kernels/cisweep.py:50")}
-    kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
-                    **rows[name]) for name, (src, rep) in sources.items()]
-    for k in kernels:
-        check(all(isinstance(v, (int, float)) and math.isfinite(v)
-                  for key, v in k.items() if key in ("ms", "plain_ms", "bound_ms")),
-              f"non-finite timing in {k}")
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
-    return 0
 
+def discrete(torch, rows, launches):
+    """Phases 4 and 5: the gsq kernel and ``pc(x, test="discrete")`` on the
+    PIGS-shaped stand-in."""
+    from repro_torch import pc
+    from repro_torch.core import cit, engines, levels as L, stable_ref
+    from repro_torch.core.compact import compact_rows
+    from repro_torch.data.synthetic_dag import sample_discrete_dag
+    from repro_torch.kernels import build, gsq
+
+    dev = torch.device("cuda")
+    cfg = PIGS
+    n, m, alpha = cfg["n"], cfg["m"], cfg["alpha"]
+    x_np, dag = discrete_codes(sample_discrete_dag, cfg)
+    test, stats = cit.DiscreteCITest.from_samples(x_np, alpha=alpha, device=dev)
+    r = test.r
+    print(f"discrete stand-in (bnlearn PIGS shape): n={n} m={m} arity {r}, "
+          f"{int(dag.adj.sum())} true arcs, α={alpha}")
+
+    def gsq_phase(label, jc, q):
+        """gsq against its plain version on jc, bitwise; timed."""
+        b, mm = jc.shape
+        got = gsq.gsq_cells(jc, r=r, q=q)
+        want = gsq.gsq_ref(jc, r=r, q=q)
+        n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        k_ms = cuda_ms(torch, lambda: gsq.gsq_cells(jc, r=r, q=q), reps=10)
+        p_ms = cuda_ms(torch, lambda: gsq.gsq_ref(jc, r=r, q=q), reps=2, warmup=1)
+        k_total = q * r * r
+        b_ms, b_by = bound(4 * b * mm + 4 * b,
+                           b * (mm * G2_OPS_PER_SAMPLE + k_total * G2_OPS_PER_TERM))
+        print(f"kernel gsq {label}: M={mm} B={b} K={k_total}: {n_diff} cells differ from the "
+              f"plain version (bitwise required); kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        check(n_diff == 0, f"gsq {label} differs from its plain version in {n_diff} cells")
+        return dict(max_abs_err=float((got - want).abs().max()), ms=k_ms, plain_ms=p_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # ------------------------------------------------------- kernel: gsq
+    codes_t = stats.codes.T.contiguous()
+    jc = (codes_t[:, None, :] * r + codes_t[None, :, :]).reshape(n * n, m)
+    rows["gsq"] = gsq_phase("level 0", jc, 1)
+    flat = (jc.to(torch.int64) + torch.arange(n * n, device=dev)[:, None] * (r * r)).reshape(-1)
+    print(f"  note: torch.bincount of the same codes (the counts alone, no G²) "
+          f"{cuda_ms(torch, lambda: torch.bincount(flat, minlength=n * n * r * r), reps=5):.4f} ms")
+    del jc, flat
+
+    adj0 = test.level0(stats, alpha)
+    sep0 = torch.full((n, n, 8), -1, dtype=torch.int32, device=dev)
+    sep0[:, :, 0] = torch.where(adj0, -1, -2).to(torch.int32)
+    adj1, _sep1, _ = engines.run_level(stats, adj0, sep0, 1, alpha, test=test)
+    ell = 2
+    npr = int(adj1.sum(1).max())
+    budget = L.DEFAULT_CELL_BUDGET * ell * ell // m  # engines.run_level's rescale
+    npr_b, n_chunk, total = L.plan_level(npr, ell, n, cell_budget=budget, n_cols=n)
+    compact, counts = compact_rows(adj1, n_prime=npr_b)
+    ranks = torch.arange(n_chunk, dtype=torch.int32, device=dev)
+    jc, _dof, mask, _ = L.g2_worklist(stats, adj1, compact, counts, ranks, ell=ell,
+                                      n_max=npr_b, r=r)
+    print(f"ℓ=2 chunk: max degree {npr} (bucket {npr_b}), {total} ranks, chunk {n_chunk}, "
+          f"{int(mask.sum())} masked-in of {jc.shape[0]} cells")
+    gsq_phase("ℓ=2 chunk", jc, r**ell)
+    del jc
+
+    # ---------------------------------------------------------- end to end
+    t0 = time.monotonic()
+    first = pc(x_np, alpha=alpha, test="discrete")
+    first_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.monotonic()
+    run = pc(x_np, alpha=alpha, test="discrete")
+    torch.cuda.synchronize()
+    e2e_s = time.monotonic() - t0
+    launches["gsq"] = build.LAUNCHES["gsq"]
+    check((run.adj == first.adj).all() and (run.sepsets == first.sepsets).all(),
+          "two runs of pc(x, test='discrete') on the card disagree")
+    print(f"e2e pc(x, test='discrete') n={n} m={m}: {e2e_s:.3f} s (first run {first_s:.3f} s), "
+          f"{run.levels_run} levels (cap {test.max_supported_level()}), "
+          f"{int(run.adj.sum()) // 2} edges, timings {json.dumps(run.timings_s)}")
+    for st in run.level_stats:
+        print(f"  level {st['level']}: engine {st['engine']} max degree {st['npr']} "
+              f"chunks {st['chunks']} {run.timings_s.get('level%d' % st['level'], 0.0):.4f} s")
+    print(f"  launches {json.dumps(build.LAUNCHES)}")
+    check(launches["gsq"] > 0 and all(st["engine"] == "G2-kernel" for st in run.level_stats),
+          f"the discrete path did not run through gsq: {build.LAUNCHES}")
+    for ell, cnt in certify_g2(run, x_np, r, alpha).items():
+        print(f"  certificate ℓ={ell}: {cnt['checked']} recorded sepsets pass in float64, "
+              f"{cnt['band']} of them in the p band, {cnt['fp32_undecidable']} past it but "
+              "within their fp32 error bound")
+
+    # the same codes on the card and on the host CPU
+    ds = D_SMALL
+    sx, _ = discrete_codes(sample_discrete_dag, ds)
+    gpu = pc(sx, alpha=ds["alpha"], test="discrete")
+    cpu = pc(sx, alpha=ds["alpha"], test="discrete", device="cpu")
+    n_diff, unexplained = explain_g2_diffs(gpu, cpu, sx, int(sx.max()) + 1, ds["alpha"])
+    same_cpdag = bool((gpu.cpdag == cpu.cpdag).all())
+    print(f"  n={ds['n']} m={ds['m']} CUDA vs CPU: {n_diff} edges differ ({unexplained} outside "
+          f"the p band), cpdag equal {same_cpdag}, {gpu.levels_run} levels, "
+          f"{int(gpu.adj.sum()) // 2} edges")
+    check(unexplained == 0, "discrete CUDA and CPU runs differ outside the p band")
+    check(same_cpdag or n_diff > 0, "CPDAGs differ although skeleton and sepsets agree")
+
+    do = D_ORACLE
+    ox, _ = discrete_codes(sample_discrete_dag, do)
+    got = pc(ox, alpha=do["alpha"], test="discrete", max_level=2)
+    want = stable_ref.pc_stable_skeleton_discrete(ox, alpha=do["alpha"], max_level=2)
+    same = bool((got.adj == want.adj).all())
+    print(f"  n={do['n']} m={do['m']} against the float64 serial oracle at max_level 2: "
+          f"skeleton equal {same}, {int(got.adj.sum()) // 2} edges")
+    check(same, "the discrete skeleton differs from the float64 serial oracle")
 
 if __name__ == "__main__":
     try:

@@ -1,6 +1,8 @@
-"""Gaussian conditional-independence primitives: Fisher z, the per-level
-threshold τ, the sample correlation matrix and a Gaussian-only
-``GaussianCITest`` (port of the Gaussian half of ``src/repro/core/cit.py``).
+"""Conditional-independence tests of the port (``src/repro/core/cit.py``):
+the Gaussian Fisher-z test (``fisher_z``, the per-level threshold τ, the
+sample correlation matrix, ``GaussianCITest``) and the discrete G²/χ²
+test (``DiscreteStats``, ``encode_discrete``, ``DiscreteCITest`` and its
+p-value ``chi2_sf_f32``).
 
 τ = Φ⁻¹(1 − α/2) / √(m − ℓ − 3). The reference evaluates Φ⁻¹ (``ndtri``)
 in float32 through ``jax.scipy``, whose Cephes rational approximation
@@ -15,12 +17,16 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import ClassVar
+from typing import ClassVar, NamedTuple
 
 import numpy as np
 import torch
 
 from .validate import InsufficientSamplesError
+
+#: Largest contingency table (cells per test) a level may need; deeper
+#: levels are refused (the reference's cap).
+MAX_G2_TABLE = 4096
 
 _F = np.float32
 # Cephes ndtri coefficients (the constants of the reference's jax.scipy)
@@ -126,19 +132,127 @@ class GaussianCITest:
     def tau(self, ell: int, *, insufficient: str = "raise") -> float:
         return threshold(self.m, ell, self.alpha, insufficient=insufficient)
 
+    def taus(self, max_level: int, *, insufficient: str = "raise") -> tuple:
+        return tuple(self.tau(ell, insufficient=insufficient) for ell in range(max_level + 1))
+
+    def level0(self, stats, tau):
+        """The level-0 kernel for a CUDA C, the plain ``levels.level0`` for
+        a CPU one (``ops.level0`` picks by device)."""
+        from repro_torch.kernels import ops
+
+        return ops.level0(stats, tau)
+
+
+# ------------------------------------------------------------- discrete G²
+class DiscreteStats(NamedTuple):
+    """Sufficient statistics of the G² test, carried in the slot the
+    Gaussian path uses for C.
+
+    codes:   (m, n) int32 level codes in [0, arity_k) per column k;
+    arities: (n,)   int32 per-variable arity (observed max + 1). It feeds
+             the dof; the code stride is the run-wide max arity r."""
+
+    codes: torch.Tensor
+    arities: torch.Tensor
+
+
+def encode_discrete(x, device=None) -> tuple:
+    """Categorical samples (m, n) → (DiscreteStats on ``device``, r_max).
+    Codes are kept verbatim (validation guarantees 0-based integers);
+    arities are per-column max + 1. ``device=None`` keeps the CPU."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    codes = np.asarray(x).astype(np.int32)
+    arities = codes.max(axis=0).astype(np.int32) + 1
+    r_max = int(arities.max(initial=1))
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    return DiscreteStats(codes=torch.tensor(codes, device=dev),
+                         arities=torch.tensor(arities, device=dev)), r_max
+
+
+def chi2_sf_f32(g2: torch.Tensor, dof: torch.Tensor) -> torch.Tensor:
+    """χ² tail probability P(X ≥ G²) with ``dof`` degrees of freedom, in
+    float32: gammaincc(dof/2, max(G², 0)/2), as the reference's epilogue.
+
+    ``torch.special.gammaincc`` and the reference's
+    ``jax.scipy.special.gammaincc`` are different float32 algorithms. In
+    the decision region (p ∈ [0.001, 0.2]) they agree to a relative 2e-5
+    for dof ≤ 36 (every level ≤ 2 at arity 3) and drift apart as the dof
+    grows, past 1e-4 at dof 972, where the reference's own error against
+    float64 is the larger one (tests/test_torch_discrete.py, ROADMAP
+    Queue 3)."""
+    g2 = g2.to(torch.float32)
+    dof = dof.to(torch.float32)
+    return torch.special.gammaincc(dof / 2.0, torch.clamp(g2, min=0.0) / 2.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiscreteCITest:
+    """Contingency-table G²/χ² test over integer level codes.
+
+    The per-level decision scalar is α itself: each test computes its own
+    dof-aware p-value and declares independence when p ≥ α (the boundary
+    counts as independent, as Z ≤ τ does). ``r`` is the run-wide maximum
+    arity, the code stride of every variable: a level-ℓ table has
+    K = r^(ℓ+2) cells, and dof uses the true per-variable arities."""
+
+    m: int
+    alpha: float = 0.01
+    r: int = 2
+    kind: ClassVar[str] = "discrete"
+
+    @classmethod
+    def from_samples(cls, x, alpha: float = 0.01, device=None):
+        """(test, stats) from raw categorical samples (validated upstream)."""
+        stats, r_max = encode_discrete(x, device=device)
+        return cls(m=int(stats.codes.shape[0]), alpha=float(alpha), r=r_max), stats
+
+    def tau(self, ell: int, *, insufficient: str = "raise") -> float:
+        del ell, insufficient  # the dof lives per test, not per level
+        return float(self.alpha)
+
+    def taus(self, max_level: int, *, insufficient: str = "raise") -> tuple:
+        return tuple(self.tau(ell, insufficient=insufficient) for ell in range(max_level + 1))
+
     def level0(self, stats, tau):
         from . import levels as L
 
-        return L.level0(stats, tau)
+        return L.level0_g2(stats, tau, r=self.r)
+
+    def table_width(self, ell: int) -> int:
+        """K = r^(ℓ+2) cells per test at level ℓ."""
+        return self.r ** (ell + 2)
+
+    def max_supported_level(self) -> int:
+        """Deepest ℓ whose table fits MAX_G2_TABLE: ``pc``'s level cap when
+        the caller leaves max_level unset."""
+        ell = 0
+        while self.table_width(ell + 1) <= MAX_G2_TABLE:
+            ell += 1
+        return ell
+
+    def check_level(self, ell: int):
+        """Refuse a level whose table exceeds MAX_G2_TABLE."""
+        k = self.table_width(ell)
+        if k > MAX_G2_TABLE:
+            raise ValueError(
+                f"level {ell} needs a {k}-cell contingency table per test "
+                f"(max arity {self.r}) — beyond MAX_G2_TABLE={MAX_G2_TABLE}. "
+                "Cap max_level, re-bin high-arity columns, or raise the cap "
+                "if the table budget allows."
+            )
 
 
-def resolve_citest(test, m: int, alpha: float) -> GaussianCITest:
-    """None / "gaussian" / a GaussianCITest → a GaussianCITest. The discrete
-    G² test is not ported yet (ROADMAP Queue 1 item 8)."""
+def resolve_citest(test, m: int, alpha: float):
+    """None / "gaussian" / "discrete" / a test instance → a test instance.
+    String forms bind (m, α) from the call; instances are returned as they
+    are."""
     if test is None or test == "gaussian":
         return GaussianCITest(m=int(m), alpha=float(alpha))
-    if isinstance(test, GaussianCITest):
+    if test == "discrete":
+        return DiscreteCITest(m=int(m), alpha=float(alpha))
+    if isinstance(test, (GaussianCITest, DiscreteCITest)):
         return test
-    if test == "discrete" or getattr(test, "kind", None) == "discrete":
-        raise ValueError("the discrete G² test is not ported yet (ROADMAP Queue 1 item 8)")
-    raise ValueError(f"test must be None, 'gaussian' or a GaussianCITest; got {test!r}")
+    raise ValueError(
+        f"test must be None, 'gaussian', 'discrete' or a GaussianCITest / "
+        f"DiscreteCITest; got {test!r}")

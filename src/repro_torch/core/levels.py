@@ -1,7 +1,9 @@
 """Per-level PC-stable machinery of the cuPC-S engine: port of the parts of
-``src/repro/core/levels.py`` that the "auto" engine runs.
+``src/repro/core/levels.py`` that the "auto" engine and the discrete G²
+engines run.
 
-* ``level0``: the unconditional pass (paper Alg. 3).
+* ``level0`` / ``level0_g2``: the unconditional pass (paper Alg. 3), for
+  the Gaussian and the discrete test.
 * ``plan_sets`` / ``gather_s``: unrank each chunk's conditioning sets and
   gather what the CI math reads, with the full validity mask.
 * ``_winners`` / ``_global_commit`` / ``_commit``: the deterministic
@@ -9,6 +11,9 @@
   replays that rule for the dense ℓ = 1 kernel's ``kwin``.
 * ``plan_level`` / ``run_level``: the bucketed chunk plan and the host
   loop over rank chunks (the depth-1 path only).
+* ``g2_worklist`` / ``chunk_g2``: a chunk of the discrete G² test, the
+  cuPC-S worklist with contingency tables in place of partial
+  correlations.
 
 Ranks are int32 by default and int64 on request (``rank_dtype``); the
 capacity guard refuses a level at ``imax // 2`` as the reference does.
@@ -26,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import imax as _imax
-from .cit import fisher_z
+from .cit import chi2_sf_f32, fisher_z
 from .combinadics import binom_table
 from .compact import compact_rows
 
@@ -34,6 +39,9 @@ from .compact import compact_rows
 #: 2^24 cells ≈ 64 MB of fp32, the reference's default.
 DEFAULT_CELL_BUDGET = 2**24
 _BIG = 2**30  # kwin's "no separator" value
+#: Bytes of joint codes ``level0_g2`` forms at once: it walks row blocks
+#: of the (n, n, m) codes so that the peak stays near this size.
+LEVEL0_JC_BYTES = 2**30
 
 
 def _f32(x: float) -> float:
@@ -48,6 +56,33 @@ def level0(c: torch.Tensor, tau: float) -> torch.Tensor:
     n = c.shape[0]
     keep = fisher_z(c) > _f32(tau)
     return keep & ~torch.eye(n, dtype=torch.bool, device=c.device)
+
+
+def level0_g2(stats, alpha: float, *, r: int) -> torch.Tensor:
+    """Unconditional discrete pass: keep edge (i, j) when the pairwise G²
+    test rejects independence, chi2.sf(G², dof) < α, i ≠ j.
+
+    stats: ``cit.DiscreteStats``; r: the run-wide max arity (the code
+    stride; the dof uses the true arities). G² comes from ``ops.gsq``: the
+    kernel on the card, its plain version on the CPU (the reference calls
+    its plain ``gsq_ref`` here; the two are bitwise equal by contract).
+    Row blocks of at most ``LEVEL0_JC_BYTES`` of joint codes go through it
+    in turn; the result does not depend on the blocking."""
+    from repro_torch.kernels.ops import gsq
+
+    codes, arities = stats
+    m, n = codes.shape
+    codes_t = codes.T.contiguous()  # (n, m)
+    g2 = torch.empty((n, n), dtype=torch.float32, device=codes.device)
+    rows = max(1, LEVEL0_JC_BYTES // max(4 * n * m, 1))
+    for i0 in range(0, n, rows):
+        i1 = min(n, i0 + rows)
+        jc = codes_t[i0:i1, None, :] * r + codes_t[None, :, :]  # (rows, n, m) int32
+        g2[i0:i1] = gsq(jc.reshape(-1, m), r=r, q=1).reshape(i1 - i0, n)
+        del jc
+    dof = torch.clamp((arities[:, None] - 1) * (arities[None, :] - 1), min=1)
+    keep = chi2_sf_f32(g2, dof) < _f32(alpha)
+    return keep & ~torch.eye(n, dtype=torch.bool, device=codes.device)
 
 
 # ------------------------------------------------------- combination unranking
@@ -207,6 +242,52 @@ def commit_dense_l1(adj, sep, kwin, rank_dtype: torch.dtype = torch.int32):
     sep_new = sep.clone()
     sep_new[:, :, 0] = torch.where(newly_removed, s_win, sep[:, :, 0])
     return adj & ~newly_removed, sep_new
+
+
+# ------------------------------------------------------------ discrete chunk
+def g2_worklist(stats, adj, compact, counts, ranks, *, ell: int, n_max: int, r: int):
+    """The G² worklist of combo-ranks ``ranks`` of every row: (jc (n·T·n′,
+    m) int32 cell-major joint codes, dof (n, T, n′) float32, mask (n, T, n′),
+    s_ids (n, T, ℓ)). The set plan and validity mask are the Gaussian
+    engines' (``plan_sets``, ``_set_mask``), so a (row, rank, slot) cell
+    names the same test in every engine."""
+    codes, arities = stats
+    n = adj.shape[0]
+    mm = codes.shape[0]
+    n_chunk = ranks.shape[0]
+    rows = torch.arange(n, dtype=torch.int32, device=adj.device)
+    s_ids, valid_set = plan_sets(compact, counts, ranks, ell=ell, n_max=n_max, n=n)
+    mask = _set_mask(adj, compact, rows, s_ids, valid_set, n)
+    j_ids = torch.clamp(compact, 0, n - 1).long()
+    codes_t = codes.T.contiguous()  # (n, m)
+    cfg = torch.zeros((n, n_chunk, mm), dtype=torch.int32, device=adj.device)
+    for k in range(ell):  # MSB-first fold of the conditioning codes
+        cfg = cfg * r + codes_t[s_ids[..., k].long()]
+    # jc = cfg·r² + x_i·r + x_j, the layout the G² fold unpacks
+    jc = (cfg[:, :, None, :] * r + codes_t[:, None, None, :]) * r + codes_t[j_ids][:, None, :, :]
+    del cfg
+    f32 = torch.float32
+    dof_cfg = (torch.prod(arities[s_ids.long()].to(f32), dim=-1) if ell
+               else torch.ones((n, n_chunk), dtype=f32, device=adj.device))
+    dof = ((arities - 1).to(f32)[:, None, None] * (arities[j_ids] - 1).to(f32)[:, None, :]
+           * dof_cfg[:, :, None])
+    return jc.reshape(-1, mm), torch.clamp(dof, min=1.0), mask, s_ids
+
+
+def chunk_g2(stats, adj, sep, compact, counts, t0, alpha, *, ell: int, n_chunk: int,
+             n_max: int, r: int, gsq_fn):
+    """Combo-ranks [t0, t0 + n_chunk) of every row under the discrete G²
+    test, with ``run_level``'s chunk contract (``cit.DiscreteStats`` in the
+    C slot, α in the τ slot): G² per cell through ``gsq_fn`` (cell-major
+    codes → (B,) float32), independence where chi2.sf(G², dof) ≥ α, then
+    the engines' (rank, endpoint-order) commit. Returns (adj, sep)."""
+    ranks = t0 + torch.arange(n_chunk, dtype=t0.dtype, device=adj.device)
+    jc, dof, mask, s_ids = g2_worklist(stats, adj, compact, counts, ranks, ell=ell,
+                                       n_max=n_max, r=r)
+    g2 = gsq_fn(jc, r=r, q=r**ell).reshape(dof.shape)
+    del jc
+    indep = chi2_sf_f32(g2, dof) >= _f32(alpha)  # the boundary counts as independent
+    return _commit(adj, sep, compact, indep & mask, ranks, s_ids, ell)
 
 
 # -------------------------------------------------------------- chunk planning

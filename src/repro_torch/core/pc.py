@@ -1,17 +1,20 @@
 """Top-level PC-stable driver of the port (``src/repro/core/pc.py``'s
-``pc`` / ``pc_from_corr`` with engine "auto").
+``pc`` / ``pc_from_corr`` with engine "auto", and the discrete G² route).
 
     run = pc(x, alpha=0.01)                       # the CUDA card
     run = pc(x, alpha=0.01, device="cpu")         # plain PyTorch versions
     run = pc_from_corr(c, m, alpha=0.01, device="cpu")
+    run = pc(codes, alpha=0.01, test="discrete")  # categorical samples
 
-Host loop over levels (paper Algorithm 2): level 0 fused, ℓ = 1 on the
-dense level-1 kernel, ℓ ≥ 2 on chunked cuPC-S (cholinv + cisweep), then
-orientation to the CPDAG. Results come back as numpy arrays in the
-reference's dtypes.
+Host loop over levels (paper Algorithm 2). Gaussian: level 0 on the
+level-0 kernel, ℓ = 1 on the dense level-1 kernel, ℓ ≥ 2 on chunked
+cuPC-S (cholinv + cisweep). Discrete: every level on the G² worklist
+through the gsq kernel. Then orientation to the CPDAG. Results come back
+as numpy arrays in the reference's dtypes.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -21,7 +24,7 @@ from .. import device as D
 from ..obs import Tracer
 from . import engines as E
 from . import validate as V
-from .cit import correlation_from_samples, resolve_citest
+from .cit import DiscreteStats, correlation_from_samples, encode_discrete, resolve_citest
 from .combinadics import MAX_LEVEL
 from .orient import cpdag_from_skeleton
 
@@ -68,6 +71,11 @@ def pc_from_corr(c, m: int, alpha: float = 0.01, engine="auto",
     ranks in int64 (the reference needs jax_enable_x64 for that)."""
     dev = D.resolve_device(device)
     test = resolve_citest(test, m, alpha)
+    if test.kind != "gaussian":
+        raise ValueError(
+            f"pc_from_corr runs the Gaussian partial-correlation test; a {test.kind!r} "
+            "CI test needs raw samples — call pc(x, test=...) instead")
+    _check_engine(engine, test)
     tracer = Tracer()
     with tracer.span("total", engine=str(engine)):
         if validate:
@@ -80,13 +88,22 @@ def pc_from_corr(c, m: int, alpha: float = 0.01, engine="auto",
     return run
 
 
-def _pc_run_host_loop(c, test, *, engine, lmax, cell_budget, tracer, rank_dtype):
+def _check_engine(engine, test):
+    """Refuse an engine name the test cannot run before any work starts (a
+    callable is checked level by level)."""
+    if not callable(engine):
+        E.resolve(engine, 1, test)
+
+
+def _pc_run_host_loop(stats, test, *, engine, lmax, cell_budget, tracer, rank_dtype):
     """The per-level host loop, one span per level; each span waits for the
-    level's work on the card before it closes."""
-    n = c.shape[0]
+    level's work on the card before it closes. ``stats`` is the test's
+    sufficient statistic: C (n, n) or ``DiscreteStats`` with (m, n) codes."""
+    arr = stats.codes if isinstance(stats, DiscreteStats) else stats
+    n, dev = arr.shape[-1], arr.device
     with tracer.span("level0", level=0) as sp:
-        adj = test.level0(c, test.tau(0, insufficient="warn"))
-        sep = torch.full((n, n, SEPSET_DEPTH), -1, dtype=torch.int32, device=c.device)
+        adj = test.level0(stats, test.tau(0, insufficient="warn"))
+        sep = torch.full((n, n, SEPSET_DEPTH), -1, dtype=torch.int32, device=dev)
         sep[:, :, 0] = torch.where(adj, -1, -2).to(torch.int32)
         sp.sync(adj)
 
@@ -98,8 +115,8 @@ def _pc_run_host_loop(c, test, *, engine, lmax, cell_budget, tracer, rank_dtype)
             break
         with tracer.span(f"level{ell}", level=ell) as sp:
             adj, sep, st = E.run_level(
-                c, adj, sep, ell, test.tau(ell, insufficient="warn"), engine=engine,
-                cell_budget=cell_budget, rank_dtype=rank_dtype)
+                stats, adj, sep, ell, test.tau(ell, insufficient="warn"), engine=engine,
+                cell_budget=cell_budget, rank_dtype=rank_dtype, test=test)
             sp.sync(adj).set(**{k: st[k] for k in ("engine", "chunks", "dispatches",
                                                    "total_sets", "npr_bucket") if k in st})
         stats_out.append({"level": ell, **st})
@@ -113,6 +130,32 @@ def _pc_run_host_loop(c, test, *, engine, lmax, cell_budget, tracer, rank_dtype)
                  sepsets=sep.cpu().numpy(), levels_run=ell - 1, level_stats=stats_out)
 
 
+def _pc_discrete(x, test, *, engine="auto", max_level=None, cell_budget=E.DEFAULT_CELL_BUDGET,
+                 validate=True, device=None, wide_ranks=False) -> PCRun:
+    """The discrete G² route of ``pc``: encode the level codes, bind the
+    test's (m, r) to the data (r, the run-wide max arity, is the code
+    stride), then run the same host loop with ``DiscreteStats`` in the
+    statistic's slot."""
+    if validate:
+        V.validate_discrete(x, max_level=max_level)
+    stats, r_max = encode_discrete(x, device=device)
+    test = dataclasses.replace(test, m=int(stats.codes.shape[0]), r=max(int(test.r), r_max))
+    _check_engine(engine, test)
+    tracer = Tracer()
+    with tracer.span("total", engine=str(engine)):
+        if max_level is None:
+            # cap where the table still fits; an explicit deeper max_level
+            # is refused by check_level
+            lmax = min(MAX_LEVEL, SEPSET_DEPTH, test.max_supported_level())
+        else:
+            lmax = min(max_level, SEPSET_DEPTH)
+        test.check_level(lmax)
+        run = _pc_run_host_loop(stats, test, engine=engine, lmax=lmax, cell_budget=cell_budget,
+                                tracer=tracer, rank_dtype=D.rank_dtype(wide_ranks))
+    run.timings_s = tracer.timings()
+    return run
+
+
 def pc(x, alpha: float = 0.01, engine="auto", max_level: int | None = None,
        corr: str = "auto", validate: bool = True, test=None, device=None, **kw) -> PCRun:
     """PC-stable from raw samples x: (m, n).
@@ -120,12 +163,22 @@ def pc(x, alpha: float = 0.01, engine="auto", max_level: int | None = None,
     corr: "kernel" computes C with the GEMM kernel (kernels/ops.correlation,
     whose CPU tensors take the plain version), "plain" with
     ``cit.correlation_from_samples``; "auto" picks the kernel on the CUDA
-    card and the plain version on the CPU."""
+    card and the plain version on the CPU.
+
+    test: None/"gaussian" (Fisher z on C), "discrete" (G²/χ² on integer
+    level codes; x must be categorical and corr left at "auto") or a test
+    instance."""
     dev = D.resolve_device(device)
+    t = resolve_citest(test, int(np.shape(x)[0]), alpha)
+    if t.kind == "discrete":
+        if corr != "auto":
+            raise ValueError("corr= selects a correlation backend; the discrete G² test "
+                             "does not compute correlations")
+        return _pc_discrete(x, t, engine=engine, max_level=max_level, validate=validate,
+                            device=dev, **kw)
     if corr not in ("auto", "kernel", "plain"):
         raise ValueError(f"corr must be auto|kernel|plain, got {corr!r}")
     x = _tensor(x).to(torch.float32)
-    t = resolve_citest(test, int(x.shape[0]), alpha)
     if validate:
         V.validate_samples(x, max_level=max_level)
     x = x.to(dev)

@@ -1,7 +1,7 @@
-"""Admission checks for samples and correlation matrices, with the typed
-errors of ``src/repro/core/validate.py`` (the subset ``pc`` and
-``pc_from_corr`` call). All checks are host-side numpy, before any work is
-sent to the card.
+"""Admission checks for samples, categorical samples and correlation
+matrices, with the typed errors of ``src/repro/core/validate.py`` (the
+subset ``pc`` and ``pc_from_corr`` call). All checks are host-side numpy,
+before any work is sent to the card.
 """
 from __future__ import annotations
 
@@ -38,6 +38,10 @@ class InsufficientSamplesError(ValidationError):
     support (m − ℓ − 3 ≤ 0)."""
 
     code = "insufficient_samples"
+
+
+class BadDiscreteDataError(ValidationError):
+    code = "bad_discrete_data"
 
 
 def _as_host(x) -> np.ndarray:
@@ -128,3 +132,78 @@ def validate_corr(c, m: int, max_level: int | None = None) -> int:
             f"= {c[ij]:.6g}.")
     _check_m(int(m), n, max_level)
     return n
+
+
+def validate_discrete(x, max_level: int | None = None,
+                      max_arity: int = 16) -> tuple[int, int]:
+    """Validate a categorical sample matrix x: (m, n) of integer level
+    codes. Returns (m, n).
+
+    Codes must be finite non-negative integers, every column needs two
+    observed levels (a one-level variable has zero degrees of freedom and
+    fabricates independence), and the largest arity is capped at
+    ``max_arity``. Fewer than ~10 samples per unconditional cell only
+    warns. ``max_level`` is accepted for the signature's sake, as in the
+    reference."""
+    del max_level
+    x = _as_host(x)
+    if x.ndim != 2:
+        raise ValidationError(
+            f"expected a (m, n) categorical sample matrix; got shape {x.shape}")
+    m, n = int(x.shape[0]), int(x.shape[1])
+    finite = np.isfinite(x)
+    if not finite.all():
+        bad = np.argwhere(~finite)
+        r, c = int(bad[0][0]), int(bad[0][1])
+        raise NonFiniteDataError(
+            f"categorical samples contain {len(bad)} non-finite value(s) "
+            f"(first at row {r}, column {c}: {x[r, c]!r}). Impute or drop "
+            "before calling pc(test='discrete')."
+        )
+    if not np.issubdtype(x.dtype, np.integer) and not np.array_equal(x, np.floor(x)):
+        bad = np.argwhere(x != np.floor(x))
+        r, c = int(bad[0][0]), int(bad[0][1])
+        raise BadDiscreteDataError(
+            f"categorical samples must be integer level codes; found "
+            f"non-integer value {x[r, c]!r} at row {r}, column {c}. "
+            "Discretise continuous variables (e.g. quantile binning) or use "
+            "the Gaussian test."
+        )
+    if x.min(initial=0) < 0:
+        bad = np.argwhere(x < 0)
+        r, c = int(bad[0][0]), int(bad[0][1])
+        raise BadDiscreteDataError(
+            f"categorical level codes must be non-negative; found "
+            f"{x[r, c]!r} at row {r}, column {c}. Re-encode levels as "
+            "0..arity-1 (e.g. np.unique(col, return_inverse=True))."
+        )
+    n_levels = np.array([np.unique(x[:, k]).size for k in range(n)])
+    const = np.flatnonzero(n_levels < 2)
+    if const.size:
+        cols = ", ".join(str(int(k)) for k in const[:8])
+        more = "" if const.size <= 8 else f" (+{const.size - 8} more)"
+        raise ConstantColumnError(
+            f"column(s) [{cols}]{more} take a single observed level: a "
+            "one-level variable has zero degrees of freedom, so every G² "
+            "test involving it is vacuous (fabricated independence). Drop "
+            "the constant columns before calling pc(test='discrete')."
+        )
+    arity = int(x.max()) + 1
+    if arity > max_arity:
+        k = int(np.argmax(x.max(axis=0)))
+        raise BadDiscreteDataError(
+            f"maximum arity {arity} (column {k}) exceeds the cap "
+            f"{max_arity}: every conditioning variable multiplies the "
+            "contingency-table width by its arity, so high-cardinality "
+            "columns blow up the G² worklist. Re-bin the column or raise "
+            "max_arity explicitly if the table budget allows."
+        )
+    if m < 10 * arity * arity:
+        warnings.warn(
+            f"m={m} samples for arity-{arity} variables gives fewer than "
+            f"~10 samples per unconditional contingency cell "
+            f"({arity * arity} cells); sparse tables bias G² toward "
+            "independence. Prefer more samples or coarser bins.",
+            stacklevel=3,
+        )
+    return m, n

@@ -48,10 +48,13 @@ SIGNATURES = {
     "repro_level1_dense": (_P, _P, _P, _P, _I, _F, _P),
     "repro_cholinv": (_P, _P, _P, _P, _P, _LL, _I, _F, _P),
     "repro_cisweep": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _P),
+    "repro_level0": (_P, _P, _I, _F, _P),
+    "repro_gsq": (_P, _P, _LL, _I, _I, _I, _P),
 }
 
 #: kernel name → launches made through its wrapper (see module docstring)
-LAUNCHES: dict[str, int] = {"corr": 0, "level1": 0, "cholinv": 0, "cisweep": 0}
+LAUNCHES: dict[str, int] = {"corr": 0, "level0": 0, "level1": 0, "cholinv": 0, "cisweep": 0,
+                            "gsq": 0}
 
 
 def reset_launches() -> None:

@@ -1,6 +1,6 @@
 """Public wrappers around the hand kernels, with the contracts of
-``src/repro/kernels/ops.py``: ``correlation``, ``level1_dense``,
-``ci_shared`` and ``chunk_s_kernel``.
+``src/repro/kernels/ops.py``: ``correlation``, ``level0``,
+``level1_dense``, ``ci_shared``, ``chunk_s_kernel`` and ``gsq``.
 
 Each wrapper runs its CUDA kernel for CUDA tensors and the kernel's plain
 PyTorch version for CPU tensors. Unlike the reference, nothing is padded
@@ -13,6 +13,8 @@ import torch
 from . import cholinv as _cholinv
 from . import cisweep as _cisweep
 from . import corr as _corr
+from . import gsq as _gsq
+from . import level0 as _level0
 from . import level1 as _level1
 
 
@@ -31,6 +33,24 @@ def correlation(x: torch.Tensor) -> torch.Tensor:
     c = torch.clamp(_corr.corr_matmul(xn), -1.0, 1.0)
     c.fill_diagonal_(1.0)
     return c
+
+
+def level0(c: torch.Tensor, tau: float) -> torch.Tensor:
+    """Level 0 of the Gaussian test, (n, n) bool: the level-0 kernel for a
+    CUDA C, the plain ``levels.level0`` for a CPU one."""
+    if c.device.type == "cpu":
+        from repro_torch.core import levels as L
+
+        return L.level0(c, tau)
+    return _level0.level0_kernel(c.contiguous(), tau)
+
+
+def gsq(jc: torch.Tensor, *, r: int, q: int) -> torch.Tensor:
+    """G² (B,) float32 of cell-major joint codes jc (B, M) int32: the gsq
+    kernel for a CUDA tensor, its plain version ``gsq_ref`` for a CPU one."""
+    if jc.device.type == "cpu":
+        return _gsq.gsq_ref(jc, r=r, q=q)
+    return _gsq.gsq_cells(jc.contiguous(), r=r, q=q)
 
 
 def level1_dense(c: torch.Tensor, adj: torch.Tensor, tau: float):

@@ -103,8 +103,10 @@ def test_validation_and_engine_errors():
         pc(x, device="cpu", engine="S")
     with pytest.raises(ValueError, match="ROADMAP"):
         pc(x, device="cpu", engine="S-grid")
-    with pytest.raises(ValueError, match="Queue 1 item 8"):
-        pc(x, device="cpu", test="discrete")
+    with pytest.raises(ValueError, match="Queue 1 item 9"):
+        pc((x > 0).astype(np.int64), device="cpu", test="discrete", engine="scan")
+    with pytest.raises(ValueError, match="raw samples"):
+        pc_from_corr(np.eye(4, dtype=np.float32), 200, device="cpu", test="discrete")
     with pytest.raises(ValueError, match="unknown engine"):
         engines.resolve("warp", 1)
     assert engines.resolve("auto", 1) == "L1-dense"

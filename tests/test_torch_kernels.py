@@ -210,4 +210,5 @@ def test_cuda_kernels_match_plain():
         hi = cisweep.cisweep_plain(*gk, cj_s, cij, mask, 0.2 + BAND).cpu()
         _assert_band_only(got, want, lo, hi, 2)
     torch.cuda.synchronize()
-    assert build.LAUNCHES == {"corr": 1, "level1": 2, "cholinv": 4, "cisweep": 4}
+    assert build.LAUNCHES == {"corr": 1, "level0": 0, "level1": 2, "cholinv": 4, "cisweep": 4,
+                              "gsq": 0}
