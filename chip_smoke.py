@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths on one CUDA card and check them.
+"""Drive the PyTorch port's paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -11,18 +11,30 @@ Phases, each of which exits non-zero on failure:
    paper's NCI-60 workload (n = 1190 variables, m = 47 samples, density
    0.02, α = 0.01; seeded Gaussian-DAG stand-in data): corr (plus the
    §5.6 shape m = 10000, n = 1000), level0 on C (exact), level1 on the
-   level-0 adjacency, cholinv and cisweep on the first ℓ = 2 chunk.
-   Decisions may differ only in cells whose statistic lies within
-   τ ± 1e-4 (found by re-running the plain version at τ ± 1e-4); cholinv
-   must agree to rtol 1e-5, atol 1e-6; corr to atol 2e-6;
+   level-0 adjacency, cholinv and cisweep on the first ℓ = 2 chunk, sgrid
+   on the first level-1 launch of "S-grid" and on seeded SPD launches at
+   ℓ = 3 and ℓ = 8. Decisions (sgrid: winners) may differ only in cells
+   whose decision moves within τ ± 1e-4 (found by re-running the plain
+   version at τ ± 1e-4); cholinv must agree to rtol 1e-5, atol 1e-6; corr
+   to atol 2e-6;
 3. Gaussian end to end: ``pc(x)`` on NCI-60 with the launch counts reset
    just before and read just after (every kernel of the path must have
    launched), a float64 certificate of every recorded sepset, and
    equality with the port's own CPU run on an n = 200 instance fed the
-   same C. A test whose float64 statistic lies past τ by less than the
-   forward-error bound of its fp32 evaluation (see ``z_of``) is not
-   decidable in fp32, the reference's arithmetic as much as the port's;
-   the certificate counts such tests and does not fail them;
+   same C, under "auto" and under "S-grid". A test whose float64
+   statistic lies past τ by less than the forward-error bound of its fp32
+   evaluation (see ``z_of``) is not decidable in fp32, the reference's
+   arithmetic as much as the port's; the certificate counts such tests
+   and does not fail them. Then ``pc(x, engine=e)`` for "S", "E",
+   "S-grid" and "S" at ``pipeline_depth=3``, each with its own counts
+   (S-grid: one sgrid launch per planned launch and no chunked kernel;
+   S and E: no kernel but corr and level0), compared with "auto" (every
+   differing edge explained by the band or the fp32 bound; for "E" the
+   skeleton only, as its sets rank differently) and certified;
+   the paper's §5.6 instance (n = 1000, m = 10 000, density 0.1, α = 0.01,
+   seed 0): sgrid on its first ℓ = 2 launch, then "auto" and "S-grid"
+   with per-level chunks and spans, "S-grid" against "auto" and
+   certified;
 4. discrete kernel: gsq against its plain version, bitwise, at the level-0
    shape of a bnlearn-PIGS-shaped stand-in (n = 441 ternary variables,
    m = 5000 samples, density 0.0061 ≈ 592 arcs, α = 0.01, seeded
@@ -57,6 +69,11 @@ FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BAND = 1e-4
 NCI60 = dict(n=1190, m=47, density=0.02, alpha=0.01, seed=0)
 SMALL = dict(n=200, m=47, density=0.02, alpha=0.01, seed=1)
+# the paper's §5.6 grid instance (src/repro/configs/cupc_datasets.py:31-33)
+S56 = dict(n=1000, m=10000, density=0.1, alpha=0.01, seed=0)
+# the NCI-60 runs of the other Gaussian engines, compared with "auto"
+ENGINE_RUNS = (("S", dict(engine="S")), ("E", dict(engine="E")),
+               ("S-grid", dict(engine="S-grid")), ("S depth 3", dict(engine="S", pipeline_depth=3)))
 # bnlearn's PIGS network: 441 variables, all ternary, 592 arcs
 PIGS = dict(n=441, m=5000, density=0.0061, arity=3, alpha=0.01, seed=0)
 D_SMALL = dict(n=40, m=2000, density=0.1, arity=3, alpha=0.01, seed=1)
@@ -148,13 +165,19 @@ def z_of(cij, ci, cj, m2):
     absolute errors up to e = 2(ℓ + 1)·u·(1 + ‖M2⁻¹‖·‖c‖²); these move ρ
     by e_num/√(var_i·var_j) + |ρ|·(e_i/2var_i + e_j/2var_j) and z by that
     over 1 − ρ². Tests on nearly collinear variables (|C| → 1) have small
-    residual variances and a large bound: fp32 cannot decide them."""
+    residual variances and a large bound: fp32 cannot decide them. A test
+    whose C[S,S] is singular (variables of S perfectly correlated in the
+    fp32 C) has no partial correlation at all: z and its bound are +inf."""
     import numpy as np
 
     ell = ci.shape[1]
+    singular = np.zeros(cij.shape, dtype=bool)
     if ell == 0:
         rho, drho = cij, np.zeros_like(cij)
     else:
+        lam = np.linalg.eigvalsh(m2)[:, 0]
+        singular = lam <= 1e-12
+        m2 = np.where(singular[:, None, None], np.eye(ell), m2)
         gi = np.linalg.solve(m2, ci[..., None])[..., 0]
         gj = np.linalg.solve(m2, cj[..., None])[..., 0]
         num = cij - np.einsum("ka,ka->k", ci, gj)
@@ -162,7 +185,7 @@ def z_of(cij, ci, cj, m2):
         vj = 1.0 - np.einsum("ka,ka->k", cj, gj)
         den = np.sqrt(np.maximum(vi * vj, 1e-300))
         rho = num / den
-        inv_norm = 1.0 / np.maximum(np.linalg.eigvalsh(m2)[:, 0], 1e-300)
+        inv_norm = 1.0 / np.maximum(lam, 1e-300)
         k = 2 * (ell + 1) * 2.0**-24
         ni, nj = (ci * ci).sum(1), (cj * cj).sum(1)
         e_i, e_j = k * (1 + inv_norm * ni), k * (1 + inv_norm * nj)
@@ -171,7 +194,8 @@ def z_of(cij, ci, cj, m2):
             drho = e_num / den + np.abs(rho) * (e_i / (2 * vi) + e_j / (2 * vj))
         drho = np.where((vi > e_i) & (vj > e_j), drho, np.inf)
     rho = np.clip(rho, -0.9999999, 0.9999999)
-    return np.abs(np.arctanh(rho)), drho / (1 - rho * rho)
+    z, err = np.abs(np.arctanh(rho)), drho / (1 - rho * rho)
+    return np.where(singular, np.inf, z), np.where(singular, np.inf, err)
 
 
 def certify(run, c64, m, alpha, threshold):
@@ -197,21 +221,32 @@ def certify(run, c64, m, alpha, threshold):
             raise PhaseError(f"sepset certificate failed at ℓ={ell}: {int(bad.sum())} sets "
                              f"with z > τ + {BAND} + fp32 error bound (worst z - τ = "
                              f"{float((z - tau)[bad].max()):.3g})")
+        singular = np.isinf(z)
+        if singular.any():
+            k = int(np.flatnonzero(singular)[0])
+            ids = srows[sel][k, :ell].astype(np.int64)
+            block = c64[np.ix_(ids, ids)]
+            print(f"  note: {int(singular.sum())} ℓ={ell} sepsets have a singular C[S,S], e.g. "
+                  f"({iu[sel][k]}, {ju[sel][k]} | {ids.tolist()}) with max |C| off its "
+                  f"diagonal {float(np.abs(block - np.diag(np.diag(block))).max())!r}")
         counts[int(ell)] = dict(checked=int(sel.sum()),
                                 band=int(((z > tau) & (z <= tau + BAND)).sum()),
-                                fp32_undecidable=int((z > tau + BAND).sum()))
+                                fp32_undecidable=int((z > tau + BAND).sum()),
+                                singular=int(singular.sum()))
     return counts
 
 
-def explain_diffs(a, b, c64, m, alpha, threshold):
-    """Edges where two runs differ in adjacency or sepset; each must be
-    explained by a CI test of either run's sepset lying within the band
-    (plus its fp32 error bound) of τ."""
+def explain_diffs(a, b, c64, m, alpha, threshold, sepsets=True):
+    """Edges where two runs differ in adjacency or (with ``sepsets``) in
+    sepset; each must be explained by a CI test of either run's sepset
+    lying within the band (plus its fp32 error bound) of τ."""
     import numpy as np
 
     n = a.adj.shape[0]
     iu, ju = np.triu_indices(n, 1)
-    differ = (a.adj[iu, ju] != b.adj[iu, ju]) | (a.sepsets[iu, ju] != b.sepsets[iu, ju]).any(1)
+    differ = a.adj[iu, ju] != b.adj[iu, ju]
+    if sepsets:
+        differ |= (a.sepsets[iu, ju] != b.sepsets[iu, ju]).any(1)
     unexplained = 0
     for i, j in zip(iu[differ], ju[differ]):
         near = False
@@ -320,6 +355,179 @@ def explain_g2_diffs(a, b, codes, r, alpha):
     return int(differ.sum()), unexplained
 
 
+def sgrid_phase(torch, label, args, tau):
+    """The sgrid kernel against its plain version on one gathered launch:
+    winners equal in every (row, slot) whose winner does not move between
+    τ − 1e-4 and τ + 1e-4; timed; its bound counted from what this launch's
+    data needs (each (row, slot) tests its masked-in ranks up to its winner,
+    each row inverts the sets up to its last winner)."""
+    from repro_torch.kernels import sgrid
+
+    m2, ci_s, cj_s, cij, mask, s_ids = args
+    n_l, t_len, npr = mask.shape
+    ell = m2.shape[-1]
+    t_k, s_k = sgrid.sgrid(*args, tau)
+    t_p, s_p = sgrid.sgrid_plain(*args, tau)
+    t_lo, _ = sgrid.sgrid_plain(*args, tau - BAND)
+    t_hi, _ = sgrid.sgrid_plain(*args, tau + BAND)
+    diff = (t_k != t_p) | (s_k != s_p).any(-1)
+    outside = diff & (t_lo == t_hi)
+    err = float(torch.where(outside, (t_k - t_p).abs(), 0).max()) if npr else 0.0
+    k_ms = cuda_ms(torch, lambda: sgrid.sgrid(*args, tau))
+    p_ms = cuda_ms(torch, lambda: sgrid.sgrid_plain(*args, tau), reps=3, warmup=1)
+    found = t_p < sgrid.SENTINEL
+    limit = torch.where(found, t_p, t_len - 1)
+    local = torch.arange(t_len, device=mask.device)
+    visited = local[None, :, None] <= limit[:, None, :]
+    cells = int(visited.sum())
+    tested = int((visited & mask.to(torch.bool)).sum())
+    ranks = int((limit.max(dim=1).values + 1).sum()) if npr else 0
+    bytes_moved = (ranks * (ell * ell + ell) * 4 + cells + tested * 4 * ell + n_l * npr * 4
+                   + int(found.sum()) * ell * 4 + n_l * npr * (ell + 1) * 4)
+    b_ms, b_by = bound(bytes_moved, ranks * cholinv_ops(ell) + tested * cisweep_ops(ell))
+    print(f"kernel sgrid {label}: n_l={n_l} T={t_len} n′={npr} ℓ={ell}: {int(found.sum())} of "
+          f"{found.numel()} slots separated; winners differ in {int(diff.sum())} cells "
+          f"({int(outside.sum())} outside the τ band, {int((t_lo != t_hi).sum())} band cells); "
+          f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {b_ms:.5f} ms ({b_by}: {tested} "
+          f"tested of {cells} visited cells, {ranks} set inverses)")
+    check(not bool(outside.any()), f"sgrid {label} winners differ outside the τ band")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def gathered_launch(torch, c, adj, ell, budget):
+    """The first launch of a level as "S-grid" plans it: the gathered
+    (m2, ci_s, cj_s, cij, mask, s_ids) of its ranks."""
+    from repro_torch.core import levels as L
+    from repro_torch.core.compact import compact_rows
+
+    n = c.shape[0]
+    npr = int(adj.sum(1).max())
+    npr_b, n_chunk, total = L.plan_level(npr, ell, n, cell_budget=budget, n_cols=n)
+    compact, counts = compact_rows(adj, n_prime=npr_b)
+    ranks = torch.arange(n_chunk, dtype=torch.int32, device=c.device)
+    rows = torch.arange(n, dtype=torch.int32, device=c.device)
+    print(f"ℓ={ell} S-grid launch: max degree {npr} (bucket {npr_b}), {total} ranks, "
+          f"{n_chunk} a launch, {-(-total // n_chunk)} launches")
+    return L.gather_s(c, adj, compact, counts, rows, ranks, ell=ell, n_max=npr_b)
+
+
+def synthetic_launch(torch, n_l, t_len, npr, ell, seed, dev):
+    """A seeded random launch with SPD m2, made on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    a = normal(n_l, t_len, ell, ell)
+    m2 = a @ a.transpose(-1, -2) / ell + 0.5 * torch.eye(ell, device=dev)
+    return (m2, 0.3 * normal(n_l, t_len, ell), 0.3 * normal(n_l, t_len, npr, ell),
+            0.3 * normal(n_l, t_len, npr), torch.rand(n_l, t_len, npr, generator=g, device=dev)
+            < 0.7, torch.randint(0, 1000, (n_l, t_len, ell), generator=g, device=dev,
+                                 dtype=torch.int32))
+
+
+def level_lines(run):
+    for st in run.level_stats:
+        print(f"  level {st['level']}: engine {st['engine']} max degree {st['npr']} "
+              f"chunks {st['chunks']} dispatches {st.get('dispatches')} n_chunk "
+              f"{st.get('n_chunk')} {run.timings_s.get('level%d' % st['level'], 0.0):.4f} s")
+
+
+def nci60_engines(torch, x_np, auto, c64, launches, dev):
+    """``pc(x, engine=e)`` on NCI-60 for the other Gaussian engines, each
+    with the counts reset just before it and read just after, against
+    "auto" on the same C and certified in float64."""
+    from repro_torch import pc
+    from repro_torch.core.cit import threshold
+    from repro_torch.kernels import build
+
+    cfg = NCI60
+    chunked = ("cholinv", "cisweep", "level1")
+    for label, kw in ENGINE_RUNS:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.monotonic()
+        run = pc(x_np, alpha=cfg["alpha"], device=dev, **kw)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        counts = dict(build.LAUNCHES)
+        chunks = sum(st["chunks"] for st in run.level_stats)
+        print(f"e2e pc(x, {', '.join(f'{k}={v!r}' for k, v in kw.items())}) NCI-60: {secs:.3f} s, "
+              f"{run.levels_run} levels, {int(run.adj.sum()) // 2} edges, {chunks} chunks, "
+              f"launches {json.dumps(counts)}")
+        level_lines(run)
+        if kw["engine"] == "S-grid":
+            launches["sgrid"] = counts["sgrid"]
+            check(counts["sgrid"] == chunks > 0 and not any(counts[k] for k in chunked),
+                  f"S-grid launched sgrid {counts['sgrid']} times for {chunks} launches "
+                  f"planned, or a chunked kernel: {counts}")
+        else:
+            check(not any(counts[k] for k in chunked + ("sgrid",)),
+                  f"{label} launched a kernel of another engine: {counts}")
+        # "E" ranks other sets than the shared-set engines: where several
+        # separate an edge it records another one, so only its skeleton is
+        # held to "auto"; its sepsets are certified below like every run's
+        n_diff, unexplained = explain_diffs(run, auto, c64, cfg["m"], cfg["alpha"], threshold,
+                                            sepsets=kw["engine"] != "E")
+        print(f"  against auto: {n_diff} edges differ ({unexplained} outside the τ band and "
+              "fp32 bound)")
+        check(unexplained == 0, f"{label} differs from auto outside the τ band and fp32 bound")
+        for ell, cnt in certify(run, c64, cfg["m"], cfg["alpha"], threshold).items():
+            print(f"  certificate ℓ={ell}: {cnt['checked']} pass, {cnt['band']} in the τ band, "
+                  f"{cnt['fp32_undecidable']} within their fp32 bound ({cnt['singular']} "
+                  "with a singular C[S,S])")
+
+
+def section56(torch, dev):
+    """The §5.6 grid instance at full n and m: sgrid at its first ℓ = 2
+    launch, then "S-grid" against "auto" with per-level chunks and spans."""
+    from repro_torch import pc
+    from repro_torch.core import engines, levels as L
+    from repro_torch.core.cit import threshold
+    from repro_torch.data.synthetic_dag import sample_gaussian_dag
+    from repro_torch.kernels import build, ops
+
+    cfg = S56
+    n, m, alpha = cfg["n"], cfg["m"], cfg["alpha"]
+    x_np, _ = sample_gaussian_dag(n, m, cfg["density"], seed=cfg["seed"])
+    c = ops.correlation(torch.tensor(x_np, dtype=torch.float32, device=dev))
+    tau = [threshold(m, ell, alpha) for ell in range(3)]
+    adj0 = ops.level0(c, tau[0])
+    sep0 = torch.full((n, n, 8), -1, dtype=torch.int32, device=dev)
+    sep0[:, :, 0] = torch.where(adj0, -1, -2).to(torch.int32)
+    adj1, _, _ = engines.run_level(c, adj0, sep0, 1, tau[1])
+    print(f"§5.6 instance n={n} m={m} density {cfg['density']}: level 0 keeps "
+          f"{int(adj0.sum()) // 2} edges, level 1 {int(adj1.sum()) // 2}")
+    sgrid_phase(torch, "§5.6 first ℓ=2 launch",
+                gathered_launch(torch, c, adj1, 2, L.GRID_CELL_BUDGET), tau[2])
+
+    runs, c64 = {}, c.double().cpu().numpy()
+    for label, run_kw in (("auto", {}), ("S-grid", dict(engine="S-grid"))):
+        build.reset_launches()
+        t0 = time.monotonic()
+        run = pc(x_np, alpha=alpha, device=dev, **run_kw)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        print(f"e2e pc(x{', engine=' + repr(label) if run_kw else ''}) §5.6: {secs:.3f} s, "
+              f"{run.levels_run} levels, {int(run.adj.sum()) // 2} edges, launches "
+              f"{json.dumps(build.LAUNCHES)}, total span {run.timings_s['total']:.4f} s")
+        level_lines(run)
+        runs[label] = run
+        if run_kw:
+            chunks = sum(st["chunks"] for st in run.level_stats)
+            check(build.LAUNCHES["sgrid"] == chunks > 0,
+                  f"§5.6 S-grid launched sgrid {build.LAUNCHES['sgrid']} times for {chunks}")
+            n_diff, unexplained = explain_diffs(run, runs["auto"], c64, m, alpha, threshold)
+            print(f"  against auto: {n_diff} edges differ ({unexplained} outside the τ band "
+                  "and fp32 bound)")
+            check(unexplained == 0, "§5.6 S-grid differs from auto outside the τ band")
+        for ell, cnt in certify(run, c64, m, alpha, threshold).items():
+            print(f"  certificate ℓ={ell}: {cnt['checked']} pass, {cnt['band']} in the τ "
+                  f"band, {cnt['fp32_undecidable']} within their fp32 bound "
+                  f"({cnt['singular']} with a singular C[S,S])")
+
+
 def main() -> int:
     import torch
 
@@ -352,6 +560,7 @@ def main() -> int:
 
     rows, launches = {}, {}
     gaussian(torch, rows, launches)
+    section56(torch, torch.device("cuda"))
     discrete(torch, rows, launches)
 
     sources = {"corr": ("src/repro_torch/csrc/corr.cu", "src/repro/kernels/corr.py:38"),
@@ -359,6 +568,7 @@ def main() -> int:
                "level1": ("src/repro_torch/csrc/level1.cu", "src/repro/kernels/level1.py:78"),
                "cholinv": ("src/repro_torch/csrc/cholinv.cu", "src/repro/kernels/cholinv.py:81"),
                "cisweep": ("src/repro_torch/csrc/cisweep.cu", "src/repro/kernels/cisweep.py:50"),
+               "sgrid": ("src/repro_torch/csrc/sgrid.cu", "src/repro/kernels/sgrid.py:170"),
                "gsq": ("src/repro_torch/csrc/gsq.cu", "src/repro/kernels/gsq.py:129")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
                     **rows[name]) for name, (src, rep) in sources.items()]
@@ -507,6 +717,14 @@ def gaussian(torch, rows, launches):
     rows["cisweep"] = dict(max_abs_err=1.0 if o_sw else 0.0, ms=k_ms, plain_ms=p_ms,
                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
+    # sgrid at the first level-1 launch of "S-grid", and on seeded SPD
+    # launches at ℓ = 3 and ℓ = 8
+    rows["sgrid"] = sgrid_phase(torch, "NCI-60 first ℓ=1 launch",
+                                gathered_launch(torch, c, adj0, 1, L.GRID_CELL_BUDGET), tau[1])
+    for ell, seed in ((3, 3), (8, 8)):
+        sgrid_phase(torch, f"synthetic SPD ℓ={ell}",
+                    synthetic_launch(torch, 1000, 64, 64, ell, seed, dev), 0.05)
+
     # ----------------------------------------------------------- end to end
     # a first run loads PyTorch's own CUDA modules (sort, unique, bmm, ...)
     # on first use; the measured run after it is the steady state
@@ -551,6 +769,16 @@ def gaussian(torch, rows, launches):
           f"cpdag equal {same_cpdag}, {gpu.levels_run} levels")
     check(unexplained == 0, "CUDA and CPU runs differ outside the τ band")
     check(same_cpdag or n_diff > 0, "CPDAGs differ although skeleton and sepsets agree")
+    gpu = pc(sx, alpha=SMALL["alpha"], engine="S-grid")
+    cpu = pc_from_corr(sc.cpu(), SMALL["m"], alpha=SMALL["alpha"], device="cpu", engine="S-grid")
+    n_diff, unexplained = explain_diffs(gpu, cpu, sc64, SMALL["m"], SMALL["alpha"], threshold)
+    same_cpdag = bool((gpu.cpdag == cpu.cpdag).all())
+    print(f"  n={SMALL['n']} S-grid CUDA vs CPU: {n_diff} edges differ ({unexplained} outside the "
+          f"τ band), cpdag equal {same_cpdag}, {gpu.levels_run} levels")
+    check(unexplained == 0, "S-grid CUDA and CPU runs differ outside the τ band")
+    check(same_cpdag or n_diff > 0, "CPDAGs differ although skeleton and sepsets agree")
+
+    nci60_engines(torch, x_np, run, c64, launches, dev)
 
 
 def discrete(torch, rows, launches):

@@ -1,10 +1,19 @@
 """Engine registry of the port: which code path runs a PC-stable level
-(port of the "auto" and discrete parts of ``src/repro/core/engines.py``).
+(port of ``src/repro/core/engines.py``).
 
-  "L1-dense"  ℓ = 1 only: the dense level-1 kernel (``ops.level1_dense``)
-              and ``levels.commit_dense_l1``.
+  "S"         cuPC-S as PyTorch ops (``levels.chunk_s``), the correctness
+              anchor; ``pipeline_depth`` ≥ 2 queues that many chunks'
+              tests ahead of their commits.
+  "E"         cuPC-E as PyTorch ops (``levels.chunk_e``): one independent
+              test per (row, slot, rank), no shared inverse.
   "S-kernel"  any ℓ ≥ 1: chunked cuPC-S through cholinv + cisweep
               (``ops.chunk_s_kernel``).
+  "S-grid"    any ℓ ≥ 1: grid-resident cuPC-S, each launch of ranks one
+              sgrid kernel that sweeps them all and keeps only the winners
+              (``ops.chunk_s_grid``), planned at ``levels.GRID_CELL_BUDGET``
+              so a level usually takes one launch.
+  "L1-dense"  ℓ = 1 only: the dense level-1 kernel (``ops.level1_dense``)
+              and ``levels.commit_dense_l1``; "S" at ℓ ≥ 2.
   "auto"      L1-dense at ℓ = 1, S-kernel at ℓ ≥ 2.
   "G2"        the discrete G² test (``levels.chunk_g2``) on the plain
               ``gsq_ref``, on any device; needs a ``DiscreteCITest``.
@@ -12,7 +21,7 @@
               the card. Under a discrete test "S"/"E" name "G2" and
               "auto"/"S-kernel" name "G2-kernel", as in the reference.
 
-The reference's other engines are not ported yet; naming one raises a
+The reference's "scan" engine is not ported yet; naming it raises a
 ``ValueError`` that says which ROADMAP item ports it.
 """
 from __future__ import annotations
@@ -26,14 +35,9 @@ from .levels import DEFAULT_CELL_BUDGET
 
 #: engines of the discrete G² test
 DISCRETE_ENGINES = ("G2", "G2-kernel")
-ENGINE_NAMES = ("auto", "L1-dense", "S-kernel") + DISCRETE_ENGINES
+ENGINE_NAMES = ("S", "E", "S-kernel", "S-grid", "L1-dense", "auto") + DISCRETE_ENGINES
 #: engines of the reference still to port → the ROADMAP item that ports them
-NOT_PORTED = {
-    "S": "ROADMAP Queue 1 item 3 (the torch \"S\" engine)",
-    "E": "ROADMAP Queue 1 item 7 (the rest of the Gaussian engines)",
-    "S-grid": "ROADMAP Queue 1 item 7 and Queue 2 item 6 (sgrid)",
-    "scan": "ROADMAP Queue 1 item 9 (the batch subsystem)",
-}
+NOT_PORTED = {"scan": "ROADMAP Queue 1 item 9 (the batch subsystem)"}
 _CANON = {name.lower(): name for name in ENGINE_NAMES + tuple(NOT_PORTED)}
 #: generic names → the G² engines, under a discrete test
 _DISCRETE_REMAP = {"S": "G2", "E": "G2", "auto": "G2-kernel", "S-kernel": "G2-kernel",
@@ -62,44 +66,52 @@ def resolve(engine, ell: int, test=None) -> str:
         raise ValueError(
             f"engine {name!r} runs the discrete G² test and needs a discrete CI test "
             "(pass test='discrete' with categorical samples); the Gaussian path uses "
-            "L1-dense/S-kernel/auto.")
+            "S/E/S-kernel/S-grid/L1-dense/auto.")
     if name == "auto":
-        name = "L1-dense" if ell == 1 else "S-kernel"
-    elif name == "L1-dense" and ell != 1:
-        name = "S"  # the dense cube exists at ℓ = 1 only, as in the reference
-    if name in NOT_PORTED:
-        raise ValueError(f"engine {name!r} is not ported yet: {NOT_PORTED[name]}")
+        return "L1-dense" if ell == 1 else "S-kernel"
+    if name == "L1-dense" and ell != 1:
+        return "S"  # the dense cube exists at ℓ = 1 only, as in the reference
     return name
 
 
 def run_level(c, adj, sep, ell: int, tau: float, engine="auto",
               cell_budget: int = DEFAULT_CELL_BUDGET, rank_dtype: torch.dtype = torch.int32,
-              test=None):
+              test=None, bucket: bool = True, pipeline_depth: int = 1):
     """Run one level on the resolved engine: returns (adj, sep, stats),
     stats["engine"] naming the concrete path taken. Under a discrete
-    ``test`` the C slot carries its ``DiscreteStats`` and τ is α."""
+    ``test`` the C slot carries its ``DiscreteStats`` and τ is α.
+    ``pipeline_depth`` ≥ 2 pipelines the "S" worklist only; the other
+    engines run depth 1, as in the reference."""
     from repro_torch.kernels import ops
 
     name = resolve(engine, ell, test)
+    kw = dict(cell_budget=cell_budget, bucket=bucket, rank_dtype=rank_dtype)
     if name in DISCRETE_ENGINES:
         from repro_torch.kernels.gsq import gsq_ref
 
         test.check_level(ell)
         # the (n·T·n′, m) joint codes dominate a G² chunk: rescale the
         # budget so plan_level's ℓ²-cell model gives the chunk m affords
-        budget = max(1, int(cell_budget) * max(ell, 1) ** 2 // max(int(test.m), 1))
+        kw["cell_budget"] = max(1, int(cell_budget) * max(ell, 1) ** 2 // max(int(test.m), 1))
         fn = functools.partial(L.chunk_g2, r=int(test.r),
                                gsq_fn=ops.gsq if name == "G2-kernel" else gsq_ref)
-        adj, sep, st = L.run_level(c, adj, sep, ell, tau, chunk_fn=fn, cell_budget=budget,
-                                   rank_dtype=rank_dtype)
-        st["engine"] = name
+        adj, sep, st = L.run_level(c, adj, sep, ell, tau, chunk_fn_s=fn, **kw)
         st["test"] = "discrete"
-        return adj, sep, st
-    if name == "L1-dense":
+    elif name == "L1-dense":
         return _run_level_dense_l1(c, adj, sep, tau, rank_dtype)
-    adj, sep, st = L.run_level(c, adj, sep, ell, tau, chunk_fn=ops.chunk_s_kernel,
-                               cell_budget=cell_budget, rank_dtype=rank_dtype)
-    st["engine"] = "S-kernel"
+    elif name == "S-kernel":
+        adj, sep, st = L.run_level(c, adj, sep, ell, tau, chunk_fn_s=ops.chunk_s_kernel, **kw)
+    elif name == "S-grid":
+        # a launch's memory is its gather alone, so the default budget rises
+        # to the per-launch one; an explicit budget is kept (tests force
+        # several launches a level with it)
+        if cell_budget == DEFAULT_CELL_BUDGET:
+            kw["cell_budget"] = L.GRID_CELL_BUDGET
+        adj, sep, st = L.run_level(c, adj, sep, ell, tau, chunk_fn_s=ops.chunk_s_grid, **kw)
+    else:
+        adj, sep, st = L.run_level(c, adj, sep, ell, tau, engine=name,
+                                   pipeline_depth=pipeline_depth, **kw)
+    st["engine"] = name
     return adj, sep, st
 
 

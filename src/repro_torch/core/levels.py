@@ -1,16 +1,21 @@
-"""Per-level PC-stable machinery of the cuPC-S engine: port of the parts of
-``src/repro/core/levels.py`` that the "auto" engine and the discrete G²
-engines run.
+"""Per-level PC-stable machinery: port of ``src/repro/core/levels.py``.
 
 * ``level0`` / ``level0_g2``: the unconditional pass (paper Alg. 3), for
   the Gaussian and the discrete test.
 * ``plan_sets`` / ``gather_s``: unrank each chunk's conditioning sets and
   gather what the CI math reads, with the full validity mask.
+* ``_inv_spd`` / ``ci_sweep`` / ``chunk_s``: the "S" engine, cuPC-S as
+  PyTorch ops, the correctness anchor; ``chunk_s_tests`` /
+  ``chunk_s_commit`` split it for the pipelined host loop.
+* ``chunk_e``: the "E" engine, cuPC-E (one independent test per
+  (row, slot, rank), no shared inverse).
 * ``_winners`` / ``_global_commit`` / ``_commit``: the deterministic
-  (rank, endpoint-order) winner per undirected edge; ``commit_dense_l1``
-  replays that rule for the dense ℓ = 1 kernel's ``kwin``.
+  (rank, endpoint-order) winner per undirected edge, for shared and
+  per-edge sets; ``commit_dense_l1`` replays that rule for the dense
+  ℓ = 1 kernel's ``kwin``.
 * ``plan_level`` / ``run_level``: the bucketed chunk plan and the host
-  loop over rank chunks (the depth-1 path only).
+  loop over rank chunks, with dispatch-ahead of depth ``pipeline_depth``
+  on the plain "S" worklist.
 * ``g2_worklist`` / ``chunk_g2``: a chunk of the discrete G² test, the
   cuPC-S worklist with contingency tables in place of partial
   correlations.
@@ -20,17 +25,25 @@ capacity guard refuses a level at ``imax // 2`` as the reference does.
 Every integer reduction names its dtype: PyTorch would otherwise promote
 sums of bool or int32 to int64 and silently accept levels the reference
 refuses.
+
+What the "S" and "E" engines rely on: float32 matrix products at full
+precision, ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's
+default). TF32 keeps 10 mantissa bits and would move partial
+correlations far past the decision band, so ``ci_sweep`` and ``chunk_e``
+refuse CUDA inputs while it is on.
 """
 from __future__ import annotations
 
 import functools
 import math
+from collections import deque
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..device import imax as _imax
+from ..kernels.cholinv import JITTER as DEFAULT_JITTER
 from .cit import chi2_sf_f32, fisher_z
 from .combinadics import binom_table
 from .compact import compact_rows
@@ -39,6 +52,10 @@ from .compact import compact_rows
 #: 2^24 cells ≈ 64 MB of fp32, the reference's default.
 DEFAULT_CELL_BUDGET = 2**24
 _BIG = 2**30  # kwin's "no separator" value
+#: Per-launch cell budget of the "S-grid" engine: a launch sweeps all its
+#: ranks inside one kernel and never writes the (n·T, n′) decisions, so
+#: the gather alone sets its memory, and 4× the chunked budget fits it.
+GRID_CELL_BUDGET = 2**26
 #: Bytes of joint codes ``level0_g2`` forms at once: it walks row blocks
 #: of the (n, n, m) codes so that the peak stays near this size.
 LEVEL0_JC_BYTES = 2**30
@@ -97,11 +114,18 @@ def _jtable(n_max: int, dtype: torch.dtype, device: torch.device) -> torch.Tenso
 def _unrank_dyn(t, n_dyn, n_max: int, ell: int, table):
     """t-th lexicographic ℓ-subset of {0..n_dyn-1}, walking candidates
     k = 0..n_max-1. t and n_dyn broadcast; returns (..., ℓ) int32 positions.
-    Ranks t ≥ C(n_dyn, ℓ) give junk the callers mask."""
+    Ranks t ≥ C(n_dyn, ℓ) give junk the callers mask.
+
+    At ℓ = 1 the walk ends where it starts: every candidate counts one set,
+    so rank t takes position t while t < n_dyn and the walk leaves 0
+    otherwise; that closed form replaces n_max rounds of small launches."""
     dev = table.device
     t = t.to(table.dtype)
     n_dyn = torch.as_tensor(n_dyn, dtype=torch.int32, device=dev)
     shape = torch.broadcast_shapes(t.shape, n_dyn.shape)
+    if ell == 1:
+        first = torch.where((t < n_dyn) & (t < n_max), t, 0)
+        return first.to(torch.int32).expand(shape)[..., None].clone()
     rem = t.expand(shape).clone()
     n_dyn = n_dyn.expand(shape)
     c = torch.zeros(shape, dtype=torch.int32, device=dev)
@@ -162,17 +186,147 @@ def gather_s(c, adj, compact, counts, rows, ranks, *, ell: int, n_max: int):
     return m2, ci_s, cj_s, cij, mask, s_ids
 
 
+# ------------------------------------------------------------- the "S" engine
+def _require_fp32_matmul(t: torch.Tensor) -> None:
+    """The S and E engines' products must run in full float32 (see the
+    module docstring)."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the S and E engines need full-precision float32 matmuls: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False (PyTorch's default)")
+
+
+def _inv_spd(m, jitter: float = DEFAULT_JITTER):
+    """Batched SPD inverse (..., ℓ, ℓ) with Tikhonov jitter scaled by each
+    block's mean |diagonal|: the closed-form adjugate at ℓ = 2, a batched
+    LU inverse (``torch.linalg.inv_ex``, which like the reference's
+    ``jnp.linalg.inv`` returns non-finite values for a singular block
+    instead of raising) above it."""
+    ell = m.shape[-1]
+    eye = torch.eye(ell, dtype=m.dtype, device=m.device)
+    diag_scale = torch.mean(torch.abs(torch.diagonal(m, dim1=-2, dim2=-1)), dim=-1)
+    m = m + (jitter * diag_scale)[..., None, None] * eye
+    if ell == 2:
+        a, b = m[..., 0, 0], m[..., 0, 1]
+        c, d = m[..., 1, 0], m[..., 1, 1]
+        det = a * d - b * c
+        adj2 = torch.stack([torch.stack([d, -b], dim=-1), torch.stack([-c, a], dim=-1)], dim=-2)
+        return adj2 / det[..., None, None]
+    return torch.linalg.inv_ex(m)[0]
+
+
+def _set_inverse(m2, ell: int):
+    """The per-set "inverse" of the S and E engines: 1/x at ℓ = 1."""
+    if ell == 1:
+        return 1.0 / torch.clamp(m2, min=1e-8)
+    return _inv_spd(m2)
+
+
+def ci_sweep(m2, ci_s, cj_s, cij, mask, tau, *, ell: int):
+    """The cuPC-S CI math on a gathered chunk: per-set inverse and shared
+    vectors, then the neighbour sweep as einsums. Returns independence ∧
+    mask, (n_l, T, n′) bool."""
+    _require_fp32_matmul(m2)
+    g = _set_inverse(m2, ell)
+    u_i = torch.einsum("ntab,ntb->nta", g, ci_s)
+    var_i = 1.0 - torch.einsum("nta,nta->nt", ci_s, u_i)
+    num = cij - torch.einsum("ntpl,ntl->ntp", cj_s, u_i)
+    gw = torch.einsum("ntab,ntpb->ntpa", g, cj_s)
+    var_j = 1.0 - torch.einsum("ntpa,ntpa->ntp", cj_s, gw)
+    rho = num / torch.sqrt(torch.clamp(var_i[..., None] * var_j, min=1e-20))
+    return (fisher_z(rho) <= _f32(tau)) & mask
+
+
+def _chunk_ranks(t0, n_chunk: int):
+    return t0 + torch.arange(n_chunk, dtype=t0.dtype, device=t0.device)
+
+
+def chunk_s(c, adj, sep, compact, counts, t0, tau, *, ell: int, n_chunk: int, n_max: int):
+    """Combo-ranks [t0, t0 + n_chunk) of every row, cuPC-S style; returns
+    the updated (adj, sep)."""
+    winners = chunk_s_tests(c, adj, compact, counts, t0, tau, ell=ell, n_chunk=n_chunk,
+                            n_max=n_max)
+    return chunk_s_commit(adj, sep, compact, *winners, ell=ell)
+
+
+def chunk_s_tests(c, adj, compact, counts, t0, tau, *, ell: int, n_chunk: int, n_max: int):
+    """The tests half of ``chunk_s``: (t_win, removed_slot, s_win) of ranks
+    [t0, t0 + n_chunk), not committed. ``adj`` only masks which cells may
+    claim a removal, so a snapshot that lags the commits adds claims on
+    removed edges alone, which ``chunk_s_commit`` discards: the tests may
+    run ahead of the commits at any depth with equal results."""
+    rows = torch.arange(compact.shape[0], dtype=torch.int32, device=adj.device)
+    ranks = _chunk_ranks(t0, n_chunk)
+    m2, ci_s, cj_s, cij, mask, s_ids = gather_s(c, adj, compact, counts, rows, ranks,
+                                                ell=ell, n_max=n_max)
+    return _winners(ci_sweep(m2, ci_s, cj_s, cij, mask, tau, ell=ell), ranks, s_ids)
+
+
+def chunk_s_commit(adj, sep, compact, t_win, removed_slot, s_win, *, ell: int):
+    """The commit half of ``chunk_s``; chunks commit in ascending rank order."""
+    rows = torch.arange(adj.shape[0], dtype=torch.int32, device=adj.device)
+    return _global_commit(adj, sep, compact, rows, t_win, removed_slot, s_win, ell)
+
+
+# ------------------------------------------------------------- the "E" engine
+def chunk_e(c, adj, sep, compact, counts, t0, tau, *, ell: int, n_chunk: int, n_max: int):
+    """Combo-ranks [t0, t0 + n_chunk) of every (row, neighbour slot p), each
+    cell an independent CI test over the sets of the row without p (the
+    paper's cuPC-E, no shared inverse). Returns the updated (adj, sep)."""
+    _require_fp32_matmul(c)
+    n, npr = compact.shape
+    dev = adj.device
+    table = _jtable(n_max, t0.dtype, dev)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    ranks = _chunk_ranks(t0, n_chunk)
+    totals = table[torch.clamp(counts - 1, 0, n_max).long(), ell]  # C(n'_i - 1, ℓ)
+    valid_rank = ranks[None, None, :] < totals[:, None, None]  # (n, 1, T)
+
+    # sets exclude the target slot p: unrank from C(n'_i - 1, ℓ), shift ≥ p
+    p_slots = torch.arange(npr, dtype=torch.int32, device=dev)
+    pos = _unrank_dyn(ranks[None, None, :], (counts - 1)[:, None, None], npr, ell, table)
+    pos = pos.expand(n, npr, n_chunk, ell)
+    pos = pos + (pos >= p_slots[None, :, None, None]).to(pos.dtype)
+    pos = torch.clamp(pos, 0, npr - 1)
+    s = torch.clamp(compact[rows.long()[:, None, None, None], pos.long()], 0, n - 1).long()
+
+    r = rows.long()
+    j_ids = torch.clamp(compact, 0, n - 1).long()
+    g = _set_inverse(c[s[..., :, None], s[..., None, :]], ell)  # (n, n′, T, ℓ, ℓ)
+    ci_s = c[r[:, None, None, None], s]
+    cj_s = c[j_ids[:, :, None, None], s]
+    u_i = torch.einsum("nptab,nptb->npta", g, ci_s)
+    var_i = 1.0 - torch.einsum("npta,npta->npt", ci_s, u_i)
+    gw = torch.einsum("nptab,nptb->npta", g, cj_s)
+    var_j = 1.0 - torch.einsum("npta,npta->npt", cj_s, gw)
+    num = c[r[:, None], j_ids][:, :, None] - torch.einsum("npta,npta->npt", cj_s, u_i)
+    rho = num / torch.sqrt(torch.clamp(var_i * var_j, min=1e-20))
+    indep = fisher_z(rho) <= _f32(tau)  # (n, n′, T)
+
+    alive = adj[r[:, None], j_ids] & (compact >= 0)
+    p_valid = p_slots[None, :] < counts[:, None]
+    mask = valid_rank & alive[:, :, None] & p_valid[:, :, None]
+    sep_found = (indep & mask).transpose(1, 2)  # (n, T, n′), the commit's layout
+    s_per_edge = s.to(torch.int32).transpose(1, 2)  # (n, T, n′, ℓ)
+    return _commit(adj, sep, compact, sep_found, ranks, None, ell, s_ids_per_edge=s_per_edge)
+
+
 # ---------------------------------------------------------------------- commit
-def _winners(sep_found, ranks, s_ids):
+def _winners(sep_found, ranks, s_ids_shared, s_ids_per_edge=None):
     """Per-(row, slot) least separating rank of the chunk: (t_win (n_l, n′),
-    removed_slot (n_l, n′) bool, s_win (n_l, n′, ℓ))."""
-    n_l = sep_found.shape[0]
+    removed_slot (n_l, n′) bool, s_win (n_l, n′, ℓ)). The sets come shared
+    per rank, s_ids_shared (n_l, T, ℓ), or per edge, s_ids_per_edge
+    (n_l, T, n′, ℓ) with s_ids_shared None."""
+    n_l, _, npr = sep_found.shape
     big = _imax(ranks.dtype)
     rank_mat = torch.where(sep_found, ranks[None, :, None], big)
     t_win, t_arg = torch.min(rank_mat, dim=1)
     removed_slot = t_win < big
     loc = torch.arange(n_l, device=ranks.device)
-    return t_win, removed_slot, s_ids[loc[:, None], t_arg]
+    if s_ids_shared is not None:
+        return t_win, removed_slot, s_ids_shared[loc[:, None], t_arg]
+    slots = torch.arange(npr, device=ranks.device)
+    return t_win, removed_slot, s_ids_per_edge[loc[:, None], t_arg, slots[None, :]]
 
 
 def _commit_key_mat(compact_full, rows_full, t_win, removed_slot, n):
@@ -212,11 +366,12 @@ def _global_commit(adj, sep, compact_full, rows_full, t_win, removed_slot, s_win
     return adj_new, torch.where(write & slot_ok, padded, sep)
 
 
-def _commit(adj, sep, compact, sep_found, ranks, s_ids, ell):
-    """sep_found (n, T, n′) of a chunk over every row → updated (adj, sep)."""
+def _commit(adj, sep, compact, sep_found, ranks, s_ids_shared, ell, s_ids_per_edge=None):
+    """sep_found (n, T, n′) of a chunk over every row → updated (adj, sep);
+    the sets as in ``_winners``."""
     n = adj.shape[0]
     rows = torch.arange(n, dtype=torch.int32, device=adj.device)
-    t_win, removed_slot, s_win = _winners(sep_found, ranks, s_ids)
+    t_win, removed_slot, s_win = _winners(sep_found, ranks, s_ids_shared, s_ids_per_edge)
     return _global_commit(adj, sep, compact, rows, t_win, removed_slot, s_win, ell)
 
 
@@ -281,7 +436,7 @@ def chunk_g2(stats, adj, sep, compact, counts, t0, alpha, *, ell: int, n_chunk: 
     C slot, α in the τ slot): G² per cell through ``gsq_fn`` (cell-major
     codes → (B,) float32), independence where chi2.sf(G², dof) ≥ α, then
     the engines' (rank, endpoint-order) commit. Returns (adj, sep)."""
-    ranks = t0 + torch.arange(n_chunk, dtype=t0.dtype, device=adj.device)
+    ranks = _chunk_ranks(t0, n_chunk)
     jc, dof, mask, s_ids = g2_worklist(stats, adj, compact, counts, ranks, ell=ell,
                                        n_max=n_max, r=r)
     g2 = gsq_fn(jc, r=r, q=r**ell).reshape(dof.shape)
@@ -325,45 +480,84 @@ def bucket_npr(npr: int, lane: int = 128) -> int:
     return _pow2_ceil(npr) if npr < lane else -(-npr // lane) * lane
 
 
-def plan_level(npr: int, ell: int, n_rows: int, cell_budget: int = DEFAULT_CELL_BUDGET,
+def plan_level(npr: int, ell: int, n_rows: int, engine: str = "S",
+               cell_budget: int = DEFAULT_CELL_BUDGET, bucket: bool = True,
                n_cols: int | None = None, rank_dtype: torch.dtype = torch.int32):
-    """One cuPC-S level's shapes: (npr_bucket, n_chunk, total_ranks). n′ is
-    bucketed and the chunk is a power of two sized so the (n·T, n′, ℓ)
-    gather stays within ``cell_budget``, as the reference's bucketed plan."""
-    npr_b = bucket_npr(npr)
+    """One level's shapes: (npr_bucket, n_chunk, total_ranks). With
+    ``bucket`` n′ is bucketed and the chunk is a power of two; either way
+    the chunk is sized so the dominant gather stays within ``cell_budget``:
+    (n·T, n′, ℓ) for "S", n′ times that for "E", whose C(n′ − 1, ℓ) ranks
+    each test every slot with its own set."""
+    npr_b = bucket_npr(npr) if bucket else npr
     if n_cols is not None:
         npr_b = min(npr_b, n_cols)
-    total = math.comb(npr, ell)
     per_rank_cells = n_rows * npr_b * max(ell, 1) * max(ell, 1)
+    if engine.upper() == "S":
+        total = math.comb(npr, ell)
+    else:
+        total = math.comb(max(npr - 1, 0), ell)
+        per_rank_cells *= npr_b
     budget_chunk = max(1, cell_budget // max(per_rank_cells, 1))
-    n_chunk = min(_pow2_ceil(total), _pow2_floor(budget_chunk))
+    if bucket:
+        n_chunk = min(_pow2_ceil(total), _pow2_floor(budget_chunk))
+    else:
+        n_chunk = max(1, min(total, budget_chunk))
     return npr_b, _check_rank_capacity(total, n_chunk, ell, rank_dtype), total
 
 
 # ------------------------------------------------------------ host level loop
-def run_level(c, adj, sep, ell: int, tau: float, *, chunk_fn,
-              cell_budget: int = DEFAULT_CELL_BUDGET, rank_dtype: torch.dtype = torch.int32):
-    """Run one PC-stable level as a host loop over rank chunks, each
-    ``chunk_fn(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk,
-    n_max)`` → (adj, sep). Edges removed by a chunk drop out of later
-    chunks through the alive mask. Returns (adj, sep, stats)."""
+def run_level(c, adj, sep, ell: int, tau: float, engine: str = "S",
+              cell_budget: int = DEFAULT_CELL_BUDGET, chunk_fn_s=None, chunk_fn_e=None,
+              bucket: bool = True, pipeline_depth: int = 1,
+              rank_dtype: torch.dtype = torch.int32):
+    """Run one PC-stable level as a host loop over rank chunks. ``engine``
+    "S" or "E" picks the worklist shape and its plain chunk function
+    (``chunk_s`` / ``chunk_e``); ``chunk_fn_s`` / ``chunk_fn_e`` replace
+    them, each ``fn(c, adj, sep, compact, counts, t0, tau, *, ell,
+    n_chunk, n_max)`` → (adj, sep). Edges removed by a chunk drop out of
+    later chunks through the alive mask.
+
+    ``pipeline_depth`` ≥ 2 splits each plain "S" chunk into
+    ``chunk_s_tests`` and ``chunk_s_commit`` and keeps up to that many
+    chunks' tests queued before the oldest commit: equal results at any
+    depth (see ``chunk_s_tests``); other chunk functions run depth 1.
+    Returns (adj, sep, stats); stats["dispatches"] counts the chunk
+    programs issued, two per pipelined chunk."""
     n = adj.shape[0]
     npr = int(adj.sum(dim=1, dtype=torch.int32).max()) if n else 0
     if npr - 1 < ell:
         return adj, sep, {"skipped": True, "chunks": 0, "dispatches": 0,
-                          "npr": npr, "engine": "S"}
-    npr_b, n_chunk, total = plan_level(npr, ell, n, cell_budget=cell_budget, n_cols=n,
-                                       rank_dtype=rank_dtype)
+                          "npr": npr, "engine": engine}
+    npr_b, n_chunk, total = plan_level(npr, ell, n, engine=engine, cell_budget=cell_budget,
+                                       bucket=bucket, n_cols=n, rank_dtype=rank_dtype)
     compact, counts = compact_rows(adj, n_prime=npr_b)
+    depth = max(1, pipeline_depth)
+    is_s = engine.upper() == "S"
+    pipelined = depth > 1 and is_s and chunk_fn_s is None
+    kw = dict(ell=ell, n_chunk=n_chunk, n_max=npr_b)
+
+    def t0s():
+        for t0 in range(0, total, n_chunk):
+            yield torch.tensor(t0, dtype=rank_dtype, device=adj.device)
+
     chunks = 0
-    for t0 in range(0, total, n_chunk):
-        t0_t = torch.tensor(t0, dtype=rank_dtype, device=adj.device)
-        adj, sep = chunk_fn(c, adj, sep, compact, counts, t0_t, tau,
-                            ell=ell, n_chunk=n_chunk, n_max=npr_b)
-        chunks += 1
+    if pipelined:
+        pending: deque = deque()
+        for t0 in t0s():
+            pending.append(chunk_s_tests(c, adj, compact, counts, t0, tau, **kw))
+            chunks += 1
+            if len(pending) >= depth:
+                adj, sep = chunk_s_commit(adj, sep, compact, *pending.popleft(), ell=ell)
+        while pending:
+            adj, sep = chunk_s_commit(adj, sep, compact, *pending.popleft(), ell=ell)
+    else:
+        fn = (chunk_fn_s or chunk_s) if is_s else (chunk_fn_e or chunk_e)
+        for t0 in t0s():
+            adj, sep = fn(c, adj, sep, compact, counts, t0, tau, **kw)
+            chunks += 1
     return adj, sep, {
         "skipped": False, "chunks": chunks, "npr": npr, "npr_bucket": npr_b,
-        "n_chunk": n_chunk, "total_sets": total, "engine": "S",
-        "compile_key": (ell, n_chunk, npr_b), "pipeline_depth": 1,
-        "dispatches": chunks,
+        "n_chunk": n_chunk, "total_sets": total, "engine": engine,
+        "compile_key": (ell, n_chunk, npr_b), "pipeline_depth": depth if pipelined else 1,
+        "dispatches": chunks * (2 if pipelined else 1),
     }

@@ -1,13 +1,16 @@
 """Top-level PC-stable driver of the port (``src/repro/core/pc.py``'s
-``pc`` / ``pc_from_corr`` with engine "auto", and the discrete G² route).
+``pc`` / ``pc_from_corr`` over the Gaussian engines, and the discrete G²
+route).
 
     run = pc(x, alpha=0.01)                       # the CUDA card
     run = pc(x, alpha=0.01, device="cpu")         # plain PyTorch versions
     run = pc_from_corr(c, m, alpha=0.01, device="cpu")
+    run = pc(x, engine="S-grid")                  # one sgrid launch a level
     run = pc(codes, alpha=0.01, test="discrete")  # categorical samples
 
 Host loop over levels (paper Algorithm 2). Gaussian: level 0 on the
-level-0 kernel, ℓ = 1 on the dense level-1 kernel, ℓ ≥ 2 on chunked
+level-0 kernel, then each level on the engine ``engines.resolve`` names;
+"auto" runs ℓ = 1 on the dense level-1 kernel and ℓ ≥ 2 on chunked
 cuPC-S (cholinv + cisweep). Discrete: every level on the G² worklist
 through the gsq kernel. Then orientation to the CPDAG. Results come back
 as numpy arrays in the reference's dtypes.
@@ -63,12 +66,16 @@ def _tensor(a) -> torch.Tensor:
 def pc_from_corr(c, m: int, alpha: float = 0.01, engine="auto",
                  max_level: int | None = None, cell_budget: int = E.DEFAULT_CELL_BUDGET,
                  validate: bool = True, test=None, device=None,
-                 wide_ranks: bool = False) -> PCRun:
+                 wide_ranks: bool = False, bucket: bool = True,
+                 pipeline_depth: int = 1) -> PCRun:
     """PC-stable from a correlation matrix c (n, n) and its sample count m.
 
     device: None means the CUDA card (raises without one); "cpu" runs the
     plain PyTorch versions of the kernels. wide_ranks=True carries combo
-    ranks in int64 (the reference needs jax_enable_x64 for that)."""
+    ranks in int64 (the reference needs jax_enable_x64 for that).
+    bucket=False plans each level at its exact max degree;
+    pipeline_depth ≥ 2 keeps that many rank chunks' tests queued ahead of
+    their commits on the "S" worklist (equal results)."""
     dev = D.resolve_device(device)
     test = resolve_citest(test, m, alpha)
     if test.kind != "gaussian":
@@ -83,7 +90,8 @@ def pc_from_corr(c, m: int, alpha: float = 0.01, engine="auto",
         c = _tensor(c).to(dev, torch.float32).contiguous()
         lmax = min(max_level if max_level is not None else MAX_LEVEL, SEPSET_DEPTH)
         run = _pc_run_host_loop(c, test, engine=engine, lmax=lmax, cell_budget=cell_budget,
-                                tracer=tracer, rank_dtype=D.rank_dtype(wide_ranks))
+                                tracer=tracer, rank_dtype=D.rank_dtype(wide_ranks),
+                                bucket=bucket, pipeline_depth=pipeline_depth)
     run.timings_s = tracer.timings()
     return run
 
@@ -95,7 +103,8 @@ def _check_engine(engine, test):
         E.resolve(engine, 1, test)
 
 
-def _pc_run_host_loop(stats, test, *, engine, lmax, cell_budget, tracer, rank_dtype):
+def _pc_run_host_loop(stats, test, *, engine, lmax, cell_budget, tracer, rank_dtype,
+                      bucket=True, pipeline_depth=1):
     """The per-level host loop, one span per level; each span waits for the
     level's work on the card before it closes. ``stats`` is the test's
     sufficient statistic: C (n, n) or ``DiscreteStats`` with (m, n) codes."""
@@ -116,7 +125,8 @@ def _pc_run_host_loop(stats, test, *, engine, lmax, cell_budget, tracer, rank_dt
         with tracer.span(f"level{ell}", level=ell) as sp:
             adj, sep, st = E.run_level(
                 stats, adj, sep, ell, test.tau(ell, insufficient="warn"), engine=engine,
-                cell_budget=cell_budget, rank_dtype=rank_dtype, test=test)
+                cell_budget=cell_budget, rank_dtype=rank_dtype, test=test, bucket=bucket,
+                pipeline_depth=pipeline_depth)
             sp.sync(adj).set(**{k: st[k] for k in ("engine", "chunks", "dispatches",
                                                    "total_sets", "npr_bucket") if k in st})
         stats_out.append({"level": ell, **st})
@@ -131,7 +141,8 @@ def _pc_run_host_loop(stats, test, *, engine, lmax, cell_budget, tracer, rank_dt
 
 
 def _pc_discrete(x, test, *, engine="auto", max_level=None, cell_budget=E.DEFAULT_CELL_BUDGET,
-                 validate=True, device=None, wide_ranks=False) -> PCRun:
+                 validate=True, device=None, wide_ranks=False, bucket=True,
+                 pipeline_depth=1) -> PCRun:
     """The discrete G² route of ``pc``: encode the level codes, bind the
     test's (m, r) to the data (r, the run-wide max arity, is the code
     stride), then run the same host loop with ``DiscreteStats`` in the
@@ -151,7 +162,8 @@ def _pc_discrete(x, test, *, engine="auto", max_level=None, cell_budget=E.DEFAUL
             lmax = min(max_level, SEPSET_DEPTH)
         test.check_level(lmax)
         run = _pc_run_host_loop(stats, test, engine=engine, lmax=lmax, cell_budget=cell_budget,
-                                tracer=tracer, rank_dtype=D.rank_dtype(wide_ranks))
+                                tracer=tracer, rank_dtype=D.rank_dtype(wide_ranks),
+                                bucket=bucket, pipeline_depth=pipeline_depth)
     run.timings_s = tracer.timings()
     return run
 

@@ -9,7 +9,7 @@ carries a hash of the sources and flags, so an edited source rebuilds and
 a finished build is reused by later processes.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``, and deliberately no
-``--use_fast_math``: the level-1 and cisweep decisions compare atanhf
+``--use_fast_math``: the level-1, cisweep and sgrid decisions compare atanhf
 against τ, and the default ``-prec-div``/``-prec-sqrt`` and no-FTZ
 settings keep them as close to the reference as the card allows.
 
@@ -50,11 +50,12 @@ SIGNATURES = {
     "repro_cisweep": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _P),
     "repro_level0": (_P, _P, _I, _F, _P),
     "repro_gsq": (_P, _P, _LL, _I, _I, _I, _P),
+    "repro_sgrid": (_P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
 }
 
 #: kernel name → launches made through its wrapper (see module docstring)
 LAUNCHES: dict[str, int] = {"corr": 0, "level0": 0, "level1": 0, "cholinv": 0, "cisweep": 0,
-                            "gsq": 0}
+                            "gsq": 0, "sgrid": 0}
 
 
 def reset_launches() -> None:

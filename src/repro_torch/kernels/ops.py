@@ -1,6 +1,7 @@
 """Public wrappers around the hand kernels, with the contracts of
 ``src/repro/kernels/ops.py``: ``correlation``, ``level0``,
-``level1_dense``, ``ci_shared``, ``chunk_s_kernel`` and ``gsq``.
+``level1_dense``, ``ci_shared``, ``chunk_s_kernel``, ``ci_shared_grid``,
+``chunk_s_grid`` and ``gsq``.
 
 Each wrapper runs its CUDA kernel for CUDA tensors and the kernel's plain
 PyTorch version for CPU tensors. Unlike the reference, nothing is padded
@@ -16,6 +17,7 @@ from . import corr as _corr
 from . import gsq as _gsq
 from . import level0 as _level0
 from . import level1 as _level1
+from . import sgrid as _sgrid
 
 
 def standardize(x: torch.Tensor) -> torch.Tensor:
@@ -88,3 +90,49 @@ def chunk_s_kernel(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max
         cij.reshape(bsz, npr), mask.reshape(bsz, npr), tau, ell=ell,
     ).reshape(n, n_chunk, npr)
     return L._commit(adj, sep, compact, sep_found, ranks, s_ids, ell)
+
+
+def ci_shared_grid(m2, ci_s, cj_s, cij, mask, s_ids, tau: float, *, ell: int):
+    """Grid-resident cuPC-S over one gathered launch, batch-first: m2
+    (n_l,T,ℓ,ℓ), ci_s (n_l,T,ℓ), cj_s (n_l,T,n′,ℓ), cij/mask (n_l,T,n′),
+    s_ids (n_l,T,ℓ) → (t_loc (n_l, n′) int32, the least separating
+    launch-local rank or ``sgrid.SENTINEL``; s_win (n_l, n′, ℓ) int32, its
+    set). The same winners as ``levels._winners`` over the same chunk."""
+    if m2.shape[-1] != ell:
+        raise ValueError(f"m2 is {m2.shape[-1]}×{m2.shape[-1]}, expected ℓ = {ell}")
+    return _sgrid.sgrid(m2, ci_s, cj_s, cij, mask, s_ids.to(torch.int32), tau)
+
+
+def _grid_winners(t_loc, s_win, t0):
+    """Launch-local winners → (t_win, removed_slot, s_win) in the rank dtype
+    the commit reads: the launch base t0 is added back outside the kernel."""
+    from repro_torch.core import levels as L
+
+    found = t_loc < _sgrid.SENTINEL
+    t_win = torch.where(found, t0 + t_loc.to(t0.dtype), L._imax(t0.dtype))
+    return t_win, found, s_win
+
+
+def chunk_s_grid_tests(c, adj, compact, counts, rows, t0, tau, *, ell, n_chunk, n_max):
+    """The tests half of the grid engine for a block of rows: ranks
+    [t0, t0 + n_chunk) gathered by ``levels.gather_s`` and swept in one
+    sgrid launch. Returns (t_win (n_l, n′), removed_slot, s_win (n_l, n′, ℓ))."""
+    from repro_torch.core import levels as L
+
+    ranks = L._chunk_ranks(t0, n_chunk)
+    m2, ci_s, cj_s, cij, mask, s_ids = L.gather_s(
+        c, adj, compact, counts, rows, ranks, ell=ell, n_max=n_max)
+    t_loc, s_win = ci_shared_grid(m2, ci_s, cj_s, cij, mask, s_ids, tau, ell=ell)
+    return _grid_winners(t_loc, s_win, t0)
+
+
+def chunk_s_grid(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max):
+    """Same contract as ``levels.chunk_s``, with ranks [t0, t0 + n_chunk)
+    in one sgrid launch and its commit; returns the updated (adj, sep)."""
+    from repro_torch.core import levels as L
+
+    n = compact.shape[0]
+    rows = torch.arange(n, dtype=torch.int32, device=c.device)
+    t_win, removed_slot, s_win = chunk_s_grid_tests(
+        c, adj, compact, counts, rows, t0, tau, ell=ell, n_chunk=n_chunk, n_max=n_max)
+    return L._global_commit(adj, sep, compact, rows, t_win, removed_slot, s_win, ell)

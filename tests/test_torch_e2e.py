@@ -1,8 +1,9 @@
 """End to end, part two: the certify and engine-matrix fixtures of
 tests/test_engines.py (lines 60 and 272) against JAX's engine "auto", and
 the port's entry points: the rank dtype, chunking and level-cap
-switches, validation, engine names still to port, the default device,
-the import rule and chip_smoke.py's refusal without a card.
+switches, validation, the engine registry against the reference's, the
+default device, the import rule and chip_smoke.py's refusal without a
+card.
 """
 import re
 from pathlib import Path
@@ -16,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core.cit import correlation_from_samples  # noqa: E402
 from repro.core.cit import threshold as jthreshold  # noqa: E402
+from repro.core import engines as jengines  # noqa: E402
 from repro.core.pc import pc_from_corr as jpc_from_corr  # noqa: E402
 from repro.data.synthetic_dag import sample_gaussian_dag  # noqa: E402
 from repro_torch import pc, pc_from_corr  # noqa: E402
@@ -99,10 +101,12 @@ def test_validation_and_engine_errors():
         pc(const, device="cpu")
     with pytest.raises(V.BadCorrelationError):
         pc_from_corr(np.ones((3, 4)), 100, device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
-        pc(x, device="cpu", engine="S")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        pc(x, device="cpu", engine="S-grid")
+    # every Gaussian engine is ported: the registry resolves as the reference's
+    for name in ("S", "E", "S-kernel", "S-grid", "L1-dense", "auto"):
+        for ell in range(1, 5):
+            assert engines.resolve(name, ell) == jengines.resolve(name, ell), (name, ell)
+    with pytest.raises(ValueError, match="Queue 1 item 9"):
+        pc(x, device="cpu", engine="scan")
     with pytest.raises(ValueError, match="Queue 1 item 9"):
         pc((x > 0).astype(np.int64), device="cpu", test="discrete", engine="scan")
     with pytest.raises(ValueError, match="raw samples"):

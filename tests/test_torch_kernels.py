@@ -211,4 +211,4 @@ def test_cuda_kernels_match_plain():
         _assert_band_only(got, want, lo, hi, 2)
     torch.cuda.synchronize()
     assert build.LAUNCHES == {"corr": 1, "level0": 0, "level1": 2, "cholinv": 4, "cisweep": 4,
-                              "gsq": 0}
+                              "gsq": 0, "sgrid": 0}
