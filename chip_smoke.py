@@ -10,7 +10,10 @@ Phases, each of which exits non-zero on failure:
    on the card, at the shapes the Gaussian main path gives it on the
    paper's NCI-60 workload (n = 1190 variables, m = 47 samples, density
    0.02, α = 0.01; seeded Gaussian-DAG stand-in data): corr (plus the
-   §5.6 shape m = 10000, n = 1000), level0 on C (exact), level1 on the
+   §5.6 shape m = 10000, n = 1000 and a ragged m = 1003, n = 517; each
+   bitwise symmetric and bitwise equal across two calls, and timed in
+   turns with ``torch.matmul``, also inside a CUDA graph), level0 on C
+   (exact), level1 on the
    level-0 adjacency, cholinv and cisweep on the first ℓ = 2 chunk, sgrid
    on the first level-1 launch of "S-grid" and on seeded SPD launches at
    ℓ = 3 and ℓ = 8. Decisions (sgrid: winners) may differ only in cells
@@ -38,7 +41,8 @@ Phases, each of which exits non-zero on failure:
 4. discrete kernel: gsq against its plain version, bitwise, at the level-0
    shape of a bnlearn-PIGS-shaped stand-in (n = 441 ternary variables,
    m = 5000 samples, density 0.0061 ≈ 592 arcs, α = 0.01, seeded
-   Dirichlet-CPT DAG data) and on its first real ℓ = 2 chunk;
+   Dirichlet-CPT DAG data) and on the first chunk of every level ℓ = 1…5
+   (K = 27 … 2187), each level's adjacency from running the one before;
 5. discrete end to end: ``pc(x, test="discrete")`` on that stand-in with
    the counts reset just before and read just after (gsq must have
    launched), per-level times, and a float64 certificate (scipy's χ²
@@ -112,6 +116,22 @@ def cuda_ms(torch, fn, reps=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps=20):
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed, so the host's time between launches drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(torch, graph.replay, reps=5, warmup=1) / reps
 
 
 def bound(bytes_moved, ops):
@@ -601,22 +621,47 @@ def gaussian(torch, rows, launches):
     tau = [threshold(m, ell, alpha) for ell in range(3)]
 
     # -------------------------------------------------------------- kernels
-    # corr, at the main path's shape and at the paper's §5.6 shape
-    for label, (mm, nn, dens, seed) in (("nci60", (m, n, cfg["density"], cfg["seed"])),
-                                        ("s5.6", (10000, 1000, 0.1, 1))):
-        xs = x if label == "nci60" else torch.tensor(
-            sample_gaussian_dag(nn, mm, dens, seed=seed)[0], dtype=torch.float32, device=dev)
+    # corr, at the main path's shape, the paper's §5.6 shape, a ragged one
+    # (m not a multiple of the 32-sample slab or of its split, n not of the
+    # 128-wide tile nor of 4) and the paper's two other small-m datasets with
+    # many tiles (S.cerevisiae, S.aureus: src/repro/configs/cupc_datasets.py:
+    # 26-27): atol 2e-6, bitwise symmetric, bitwise equal across two calls;
+    # timed in turns with torch.matmul, and in a CUDA graph for the device
+    # time alone (at m = 47 both calls are host-bound)
+    corr_shapes = (("nci60", m, n, None), ("s5.6", 10000, 1000, (0.1, 1)),
+                   ("ragged", 1003, 517, (0.1, 2)), ("S.cerevisiae", 63, 5361, (0.01, 3)),
+                   ("S.aureus", 160, 2810, (0.01, 4)))
+    for label, mm, nn, gen in corr_shapes:
+        xs = x if gen is None else torch.tensor(
+            sample_gaussian_dag(nn, mm, gen[0], seed=gen[1])[0], dtype=torch.float32, device=dev)
         xn = ops.standardize(xs).contiguous()
         got = corr.corr_matmul(xn)
         want = corr.corr_matmul_plain(xn)
         err = float((got - want).abs().max())
-        k_ms = cuda_ms(torch, lambda: corr.corr_matmul(xn))
+        symmetric = torch.equal(got, got.T)
+        same = torch.equal(got, corr.corr_matmul(xn))
+        reps = 50 if mm * nn * nn > 1e9 else 20
+        l1_ms = cuda_ms(torch, lambda: torch.matmul(xn.T, xn), reps=reps)
+        k1_ms = cuda_ms(torch, lambda: corr.corr_matmul(xn), reps=reps)
+        k2_ms = cuda_ms(torch, lambda: corr.corr_matmul(xn), reps=reps)
+        l2_ms = cuda_ms(torch, lambda: torch.matmul(xn.T, xn), reps=reps)
+        k_ms, lib_ms = (k1_ms + k2_ms) / 2, (l1_ms + l2_ms) / 2
+        kg_ms = graph_ms(torch, lambda: corr.corr_matmul(xn))
+        lg_ms = graph_ms(torch, lambda: torch.matmul(xn.T, xn))
         p_ms = cuda_ms(torch, lambda: corr.corr_matmul_plain(xn))
-        lib_ms = cuda_ms(torch, lambda: torch.matmul(xn.T, xn))
-        b_ms, b_by = bound((mm * nn + nn * nn) * 4, 2 * mm * nn * nn)
-        print(f"kernel corr m={mm} n={nn}: max_abs_err {err:.3g} (tol 2e-6) kernel {k_ms:.4f} ms "
-              f"plain {p_ms:.4f} ms torch.matmul {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        # the least work of XᵀX is its symmetric half: m·n·(n + 1) FLOPs
+        b_ms, b_by = bound((mm * nn + nn * nn) * 4, mm * nn * (nn + 1))
+        tile, tiles, splits, sps = corr.plan(mm, nn, torch.cuda.get_device_properties(dev)
+                                             .multi_processor_count)
+        print(f"kernel corr {label} m={mm} n={nn} ({tiles} tiles of {tile} x {splits} splits of "
+              f"{sps} slabs): max_abs_err {err:.3g} (tol 2e-6), bitwise symmetric {symmetric}, "
+              f"bitwise equal across calls {same}; kernel {k1_ms:.4f}/{k2_ms:.4f} ms, "
+              f"torch.matmul {l1_ms:.4f}/{l2_ms:.4f} ms (kernel faster: {k_ms < lib_ms}); "
+              f"in a CUDA graph kernel {kg_ms:.4f} ms, torch.matmul {lg_ms:.4f} ms; "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; the full 2·m·n² product: "
+              f"{bound((mm * nn + nn * nn) * 4, 2 * mm * nn * nn)[0]:.4f} ms)")
         check(err <= 2e-6, f"corr m={mm} n={nn} disagrees with its plain version: {err}")
+        check(symmetric and same, f"corr m={mm} n={nn} is not bitwise symmetric and repeatable")
         if label == "nci60":
             rows["corr"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=lib_ms)
@@ -826,22 +871,27 @@ def discrete(torch, rows, launches):
           f"{cuda_ms(torch, lambda: torch.bincount(flat, minlength=n * n * r * r), reps=5):.4f} ms")
     del jc, flat
 
-    adj0 = test.level0(stats, alpha)
-    sep0 = torch.full((n, n, 8), -1, dtype=torch.int32, device=dev)
-    sep0[:, :, 0] = torch.where(adj0, -1, -2).to(torch.int32)
-    adj1, _sep1, _ = engines.run_level(stats, adj0, sep0, 1, alpha, test=test)
-    ell = 2
-    npr = int(adj1.sum(1).max())
-    budget = L.DEFAULT_CELL_BUDGET * ell * ell // m  # engines.run_level's rescale
-    npr_b, n_chunk, total = L.plan_level(npr, ell, n, cell_budget=budget, n_cols=n)
-    compact, counts = compact_rows(adj1, n_prime=npr_b)
-    ranks = torch.arange(n_chunk, dtype=torch.int32, device=dev)
-    jc, _dof, mask, _ = L.g2_worklist(stats, adj1, compact, counts, ranks, ell=ell,
-                                      n_max=npr_b, r=r)
-    print(f"ℓ=2 chunk: max degree {npr} (bucket {npr_b}), {total} ranks, chunk {n_chunk}, "
-          f"{int(mask.sum())} masked-in of {jc.shape[0]} cells")
-    gsq_phase("ℓ=2 chunk", jc, r**ell)
-    del jc
+    # the first chunk of every level ℓ = 1…5 of the run, each level's
+    # adjacency from the level before it
+    adj = test.level0(stats, alpha)
+    sep = torch.full((n, n, 8), -1, dtype=torch.int32, device=dev)
+    sep[:, :, 0] = torch.where(adj, -1, -2).to(torch.int32)
+    for ell in range(1, test.max_supported_level() + 1):
+        npr = int(adj.sum(1).max())
+        if npr - 1 < ell:
+            print(f"ℓ={ell}: max degree {npr}, no conditioning set of size {ell}")
+            break
+        budget = L.DEFAULT_CELL_BUDGET * ell * ell // m  # engines.run_level's rescale
+        npr_b, n_chunk, total = L.plan_level(npr, ell, n, cell_budget=budget, n_cols=n)
+        compact, counts = compact_rows(adj, n_prime=npr_b)
+        ranks = torch.arange(n_chunk, dtype=torch.int32, device=dev)
+        jc, _dof, mask, _ = L.g2_worklist(stats, adj, compact, counts, ranks, ell=ell,
+                                          n_max=npr_b, r=r)
+        print(f"ℓ={ell} chunk: max degree {npr} (bucket {npr_b}), {total} ranks, "
+              f"chunk {n_chunk}, {int(mask.sum())} masked-in of {jc.shape[0]} cells")
+        gsq_phase(f"ℓ={ell} chunk", jc, r**ell)
+        del jc
+        adj, sep, _ = engines.run_level(stats, adj, sep, ell, alpha, test=test)
 
     # ---------------------------------------------------------- end to end
     t0 = time.monotonic()

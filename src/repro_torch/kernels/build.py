@@ -13,7 +13,8 @@ Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``, and deliberately no
 against τ, and the default ``-prec-div``/``-prec-sqrt`` and no-FTZ
 settings keep them as close to the reference as the card allows.
 
-``LAUNCHES`` counts, per kernel, the launches the wrappers made; a run
+``LAUNCHES`` counts, per kernel, the launches the wrappers made (corr's
+split-K path is two: the splits and their reduction); a run
 resets it with :func:`reset_launches` and reads it afterwards to show
 which kernels its path went through.
 """
@@ -44,7 +45,7 @@ _F = ctypes.c_float
 #: C signature of every exported launcher: (argtypes); each returns the
 #: launch's cudaError_t as an int.
 SIGNATURES = {
-    "repro_corr_xtx": (_P, _P, _I, _I, _F, _P),
+    "repro_corr_xtx": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_level1_dense": (_P, _P, _P, _P, _I, _F, _P),
     "repro_cholinv": (_P, _P, _P, _P, _P, _LL, _I, _F, _P),
     "repro_cisweep": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _P),
@@ -144,14 +145,27 @@ def library() -> Built:
     return Built(lib=lib, path=out, seconds=seconds, ptxas=ptxas)
 
 
-def launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
+# PyTorch's current stream of a device as a raw cudaStream_t: the call its
+# own generated code makes, a few µs cheaper than building a Stream object
+# (which matters at the µs sizes of NCI-60's kernels); CPU-only builds lack it
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _current_stream(device: torch.device) -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(kernel: str, symbol: str, device: torch.device, *args, kernels: int = 1) -> None:
     """Call one exported launcher on PyTorch's current stream of
-    ``device``, raise on a refused launch, and count it under ``kernel``."""
-    stream = torch.cuda.current_stream(device).cuda_stream
+    ``device``, raise on a refused launch, and count the ``kernels``
+    launches it made under ``kernel``."""
+    stream = _current_stream(device)
     rc = getattr(library().lib, symbol)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed with cudaError_t {rc}")
-    LAUNCHES[kernel] += 1
+    LAUNCHES[kernel] += kernels
 
 
 def require_cuda(*tensors) -> None:

@@ -368,13 +368,30 @@ def test_cuda_gsq_and_level0_match_plain():
         rng = np.random.default_rng(r * 1000 + q)
         jc = torch.tensor(rng.integers(-1, q * r * r, size=(b, m)), dtype=torch.int32, device=dev)
         assert torch.equal(gsq.gsq_cells(jc, r=r, q=q), gsq.gsq_ref(jc, r=r, q=q))
+    # K from 9 to 2187 (32 and 36 among them), M % 4 ≠ 0 (4-byte loads),
+    # padding codes below 0 and at or above K, an all-padding row and rows
+    # whose samples all carry one code (every sample of the cell in one bin)
+    cases = ((3, 1, 5000), (3, 1, 4999), (3, 3, 1001), (2, 8, 5000), (3, 4, 5000), (6, 1, 777),
+             (3, 9, 5000), (3, 9, 4998), (3, 243, 5000))
+    for r, q, m in cases:
+        k = q * r * r
+        rng = np.random.default_rng(k * 7 + m)
+        codes = rng.integers(-3, k + 3, size=(64, m))
+        codes[0] = -1
+        codes[1] = k // 2
+        codes[2] = k - 1
+        codes[3, : m // 2] = 0
+        jc = torch.tensor(codes, dtype=torch.int32, device=dev)
+        got = gsq.gsq_cells(jc, r=r, q=q)
+        assert torch.equal(got, gsq.gsq_ref(jc, r=r, q=q)), (r, q, m)
+        assert float(got[0]) == 0.0 and float(got[1]) == 0.0
     rng = np.random.default_rng(0)
     c = np.clip(rng.normal(0, 0.4, size=(300, 300)), -0.99, 0.99).astype(np.float32)
     ct = torch.tensor((c + c.T) / 2, device=dev).fill_diagonal_(1.0)
     for tau in (0.01, 0.1, 0.5):
         assert torch.equal(ops.level0(ct, tau), L.level0(ct, tau))
     torch.cuda.synchronize()
-    assert build.LAUNCHES["gsq"] == 5 and build.LAUNCHES["level0"] == 3
+    assert build.LAUNCHES["gsq"] == 5 + len(cases) and build.LAUNCHES["level0"] == 3
     x = _discrete_x(12, 600, seed=4)
     build.reset_launches()
     run = pc(x, alpha=0.05, test="discrete", max_level=2)

@@ -4,7 +4,8 @@ The JAX kernels run in Pallas interpret mode (``repro.kernels.ops``) or
 through their oracles (``repro.kernels.ref``); the port's wrappers get CPU
 tensors and so run their plain PyTorch versions. Tolerances:
 
-* correlation: atol 2e-6 (tests/test_kernels.py:26);
+* correlation: atol 2e-6 (tests/test_kernels.py:26); on the card the kernel
+  is also bitwise symmetric and bitwise equal from call to call;
 * cholinv g/u/var: rtol 1e-5, atol 1e-6;
 * decisions (level 0, level 1 removed/kwin, ci_shared): equal except
   cells whose statistic lies within τ ± 1e-4, found by re-running the
@@ -175,6 +176,32 @@ def test_wrappers_reject_bad_inputs():
         build.require_cuda(torch.zeros(2))
 
 
+@pytest.mark.parametrize("m,n", [(47, 1190), (10000, 1000), (10000, 300), (1003, 517), (1, 1),
+                                 (200, 70), (100000, 4000)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_corr_plan_covers_every_slab(m, n, sms):
+    """The split plan of the corr kernel: every upper tile, every sample
+    slab in exactly one split, none empty, at most MAX_SPLITS; 64-wide tiles
+    and one split (a direct launch) exactly where m ≤ 512."""
+    tile, tiles, splits, sps = corr.plan(m, n, sms)
+    nt = -(-n // tile)
+    slabs = -(-m // corr.SLAB[tile])
+    assert tiles == nt * (nt + 1) // 2
+    assert 1 <= splits <= corr.MAX_SPLITS
+    assert (splits - 1) * sps < slabs <= splits * sps
+    assert (tile == corr.SMALL_TILE) == (m <= corr.DIRECT_MAX_M)
+    assert tile == corr.TILE or splits == 1
+    if sms == 1:  # one block at a time: splitting only adds overhead
+        assert splits == 1
+
+
+def test_corr_plan_fills_the_card_at_the_paper_shapes():
+    assert corr.plan(10000, 1000, 132) == (128, 36, 11, 29)  # 396 blocks: 3 full waves
+    assert corr.plan(47, 1190, 132) == (64, 190, 1, 3)
+    assert corr.plan(100, 2000, 132) == (64, 528, 1, 7)
+    assert corr.plan(513, 1000, 132) == (128, 36, 3, 6)  # the smallest split-K m
+
+
 # ------------------------------------------------------------- on the card
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain():
@@ -184,9 +211,19 @@ def test_cuda_kernels_match_plain():
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
     build.reset_launches()
-    x = torch.tensor(rng.normal(size=(200, 70)), dtype=torch.float32, device=dev)
-    xn = ops.standardize(x).contiguous()
-    assert (corr.corr_matmul(xn) - corr.corr_matmul_plain(xn)).abs().max() <= 2e-6
+    # corr: atol 2e-6, bitwise symmetric and bitwise equal across two calls;
+    # ragged m and n (16-byte and 4-byte copies), m = 1, n = 1, written
+    # directly (m ≤ 512, 64-wide tiles; one launch), split-K (two launches),
+    # and splits of several 512-sample groups each (m = 20 000 over one tile)
+    corr_shapes = ((200, 70), (1003, 517), (999, 260), (1, 40), (50, 1), (1, 1), (47, 1190),
+                   (100, 2000), (64, 2050), (300, 256), (513, 1000), (10000, 300), (20000, 64))
+    for m, n in corr_shapes:
+        x = torch.tensor(rng.normal(size=(m, n)), dtype=torch.float32, device=dev)
+        xn = ops.standardize(x).contiguous() if m > 1 else x
+        got = corr.corr_matmul(xn)
+        assert (got - corr.corr_matmul_plain(xn)).abs().max() <= 2e-6, (m, n)
+        assert torch.equal(got, got.T), (m, n)
+        assert torch.equal(got, corr.corr_matmul(xn)), (m, n)
     c = torch.tensor(_corr_like(rng, 70, 0.35), device=dev)
     adj = torch.tensor(rng.random((70, 70)) < 0.4, device=dev)
     adj = (adj | adj.T) & ~torch.eye(70, dtype=torch.bool, device=dev)
@@ -210,5 +247,7 @@ def test_cuda_kernels_match_plain():
         hi = cisweep.cisweep_plain(*gk, cj_s, cij, mask, 0.2 + BAND).cpu()
         _assert_band_only(got, want, lo, hi, 2)
     torch.cuda.synchronize()
-    assert build.LAUNCHES == {"corr": 1, "level0": 0, "level1": 2, "cholinv": 4, "cisweep": 4,
+    corr_launches = sum(2 * (1 if m <= corr.DIRECT_MAX_M else 2) for m, _ in corr_shapes)
+    assert build.LAUNCHES == {"corr": corr_launches, "level0": 0, "level1": 2,
+                              "cholinv": 4, "cisweep": 4,
                               "gsq": 0, "sgrid": 0}
