@@ -13,13 +13,18 @@ Phases, each of which exits non-zero on failure:
    §5.6 shape m = 10000, n = 1000 and a ragged m = 1003, n = 517; each
    bitwise symmetric and bitwise equal across two calls, and timed in
    turns with ``torch.matmul``, also inside a CUDA graph), level0 on C
-   (exact), level1 on the
-   level-0 adjacency, cholinv and cisweep on the first ℓ = 2 chunk, sgrid
-   on the first level-1 launch of "S-grid" and on seeded SPD launches at
-   ℓ = 3 and ℓ = 8. Decisions (sgrid: winners) may differ only in cells
-   whose decision moves within τ ± 1e-4 (found by re-running the plain
-   version at τ ± 1e-4); cholinv must agree to rtol 1e-5, atol 1e-6; corr
-   to atol 2e-6;
+   (exact), level1 on the level-0 adjacency (with the 32-k steps its
+   pairs' own walks need, the steps 16×16 tiles of pairs walking k in
+   lockstep (the earlier level-1 design) ran, and
+   the kernel's 128-k warp steps), cholinv and cisweep on the first ℓ = 2
+   chunk, sgrid's fused entry (the "S-grid" path: C, neighbour lists and
+   the first rank, no gather) on the first level-1 launch of "S-grid",
+   timed beside ``levels.gather_s`` and the gathered entry on the same
+   launch, and sgrid's gathered entry on seeded SPD launches at ℓ = 3 and
+   ℓ = 8. Decisions (sgrid: winners) may differ only in cells whose
+   decision moves within τ ± 1e-4 (found by re-running the plain version
+   at τ ± 1e-4); cholinv must agree to rtol 1e-5, atol 1e-6; corr to
+   atol 2e-6;
 3. Gaussian end to end: ``pc(x)`` on NCI-60 with the launch counts reset
    just before and read just after (every kernel of the path must have
    launched), a float64 certificate of every recorded sepset, and
@@ -35,7 +40,7 @@ Phases, each of which exits non-zero on failure:
    differing edge explained by the band or the fp32 bound; for "E" the
    skeleton only, as its sets rank differently) and certified;
    the paper's §5.6 instance (n = 1000, m = 10 000, density 0.1, α = 0.01,
-   seed 0): sgrid on its first ℓ = 2 launch, then "auto" and "S-grid"
+   seed 0): sgrid's fused entry on its first ℓ = 2 launch, then "auto" and "S-grid"
    with per-level chunks and spans, "S-grid" against "auto" and
    certified;
 4. discrete kernel: gsq against its plain version, bitwise, at the level-0
@@ -375,51 +380,75 @@ def explain_g2_diffs(a, b, codes, r, alpha):
     return int(differ.sum()), unexplained
 
 
-def sgrid_phase(torch, label, args, tau):
-    """The sgrid kernel against its plain version on one gathered launch:
-    winners equal in every (row, slot) whose winner does not move between
-    τ − 1e-4 and τ + 1e-4; timed; its bound counted from what this launch's
-    data needs (each (row, slot) tests its masked-in ranks up to its winner,
-    each row inverts the sets up to its last winner)."""
-    from repro_torch.kernels import sgrid
-
-    m2, ci_s, cj_s, cij, mask, s_ids = args
+def sgrid_work(torch, t_p, mask, n_valid=None):
+    """What a launch's data needs of an sgrid sweep: each (row, slot) tests
+    its masked-in ranks up to its winner, each row inverts the sets up to
+    its last winner (or its last valid rank, ``n_valid`` (n_l,) when
+    given). Returns (visited cells, tested cells, set inverses, separated
+    slots)."""
     n_l, t_len, npr = mask.shape
-    ell = m2.shape[-1]
-    t_k, s_k = sgrid.sgrid(*args, tau)
-    t_p, s_p = sgrid.sgrid_plain(*args, tau)
-    t_lo, _ = sgrid.sgrid_plain(*args, tau - BAND)
-    t_hi, _ = sgrid.sgrid_plain(*args, tau + BAND)
-    diff = (t_k != t_p) | (s_k != s_p).any(-1)
-    outside = diff & (t_lo == t_hi)
-    err = float(torch.where(outside, (t_k - t_p).abs(), 0).max()) if npr else 0.0
-    k_ms = cuda_ms(torch, lambda: sgrid.sgrid(*args, tau))
-    p_ms = cuda_ms(torch, lambda: sgrid.sgrid_plain(*args, tau), reps=3, warmup=1)
-    found = t_p < sgrid.SENTINEL
-    limit = torch.where(found, t_p, t_len - 1)
+    found = t_p < 2**30
+    last = t_len - 1 if n_valid is None else (n_valid.to(t_p.dtype) - 1)[:, None]
+    limit = torch.where(found, t_p, last)
     local = torch.arange(t_len, device=mask.device)
     visited = local[None, :, None] <= limit[:, None, :]
     cells = int(visited.sum())
     tested = int((visited & mask.to(torch.bool)).sum())
     ranks = int((limit.max(dim=1).values + 1).sum()) if npr else 0
-    bytes_moved = (ranks * (ell * ell + ell) * 4 + cells + tested * 4 * ell + n_l * npr * 4
-                   + int(found.sum()) * ell * 4 + n_l * npr * (ell + 1) * 4)
-    b_ms, b_by = bound(bytes_moved, ranks * cholinv_ops(ell) + tested * cisweep_ops(ell))
-    print(f"kernel sgrid {label}: n_l={n_l} T={t_len} n′={npr} ℓ={ell}: {int(found.sum())} of "
-          f"{found.numel()} slots separated; winners differ in {int(diff.sum())} cells "
-          f"({int(outside.sum())} outside the τ band, {int((t_lo != t_hi).sum())} band cells); "
-          f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {b_ms:.5f} ms ({b_by}: {tested} "
-          f"tested of {cells} visited cells, {ranks} set inverses)")
+    return cells, tested, ranks, int(found.sum())
+
+
+def sgrid_check(torch, label, got, plain):
+    """Winners of an sgrid entry against its plain version ``plain(d)`` at
+    τ + d: equal in every (row, slot) whose winner does not move between
+    τ − 1e-4 and τ + 1e-4. Returns (plain winners, # differing, # outside
+    the band, # band cells, max |t_k − t_p| outside)."""
+    t_k, s_k = got
+    (t_p, s_p), (t_lo, _), (t_hi, _) = plain(0.0), plain(-BAND), plain(BAND)
+    diff = (t_k != t_p) | (s_k != s_p).any(-1)
+    outside = diff & (t_lo == t_hi)
+    err = float(torch.where(outside, (t_k - t_p).abs(), 0).max()) if t_k.numel() else 0.0
     check(not bool(outside.any()), f"sgrid {label} winners differ outside the τ band")
+    return t_p, int(diff.sum()), int(outside.sum()), int((t_lo != t_hi).sum()), err
+
+
+def sgrid_phase(torch, label, args, tau):
+    """The gathered sgrid entry against its plain version on one gathered
+    launch; timed; its bound counted from what this launch's data needs
+    (``sgrid_work``) over the gathered operands it reads."""
+    from repro_torch.kernels import sgrid
+
+    m2, ci_s, cj_s, cij, mask, s_ids = args
+    n_l, t_len, npr = mask.shape
+    ell = m2.shape[-1]
+    t_p, n_diff, n_out, n_band, err = sgrid_check(
+        torch, label, sgrid.sgrid(*args, tau), lambda d: sgrid.sgrid_plain(*args, tau + d))
+    k_ms = cuda_ms(torch, lambda: sgrid.sgrid(*args, tau))
+    p_ms = cuda_ms(torch, lambda: sgrid.sgrid_plain(*args, tau), reps=3, warmup=1)
+    cells, tested, ranks, found = sgrid_work(torch, t_p, mask)
+    bytes_moved = (ranks * (ell * ell + ell) * 4 + cells + tested * 4 * ell + n_l * npr * 4
+                   + found * ell * 4 + n_l * npr * (ell + 1) * 4)
+    b_ms, b_by = bound(bytes_moved, ranks * cholinv_ops(ell) + tested * cisweep_ops(ell))
+    print(f"kernel sgrid (gathered) {label}: n_l={n_l} T={t_len} n′={npr} ℓ={ell}: {found} of "
+          f"{n_l * npr} slots separated; winners differ in {n_diff} cells ({n_out} outside the "
+          f"τ band, {n_band} band cells); kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound "
+          f"{b_ms:.5f} ms ({b_by}: {tested} tested of {cells} visited cells, {ranks} set "
+          "inverses)")
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
 
 
-def gathered_launch(torch, c, adj, ell, budget):
-    """The first launch of a level as "S-grid" plans it: the gathered
-    (m2, ci_s, cj_s, cij, mask, s_ids) of its ranks."""
+def sgrid_fused_phase(torch, label, c, adj, ell, budget, tau):
+    """The first launch of a level as "S-grid" plans it, through the fused
+    entry (C, Cᵀ, adj, neighbour lists and counts, the first rank; no
+    unrank or gather on the host) against its plain version (``plan_sets``,
+    ``gather_sets``, ``sgrid_plain``); timed beside ``levels.gather_s``
+    alone (unrank and gather) and the gathered entry on the same launch.
+    Bound: C, adj, the neighbour lists and counts read once, the outputs
+    written once; the operations of ``sgrid_work``."""
     from repro_torch.core import levels as L
     from repro_torch.core.compact import compact_rows
+    from repro_torch.kernels import sgrid
 
     n = c.shape[0]
     npr = int(adj.sum(1).max())
@@ -429,7 +458,42 @@ def gathered_launch(torch, c, adj, ell, budget):
     rows = torch.arange(n, dtype=torch.int32, device=c.device)
     print(f"ℓ={ell} S-grid launch: max degree {npr} (bucket {npr_b}), {total} ranks, "
           f"{n_chunk} a launch, {-(-total // n_chunk)} launches")
-    return L.gather_s(c, adj, compact, counts, rows, ranks, ell=ell, n_max=npr_b)
+    c_t = c.T.contiguous()
+    t0 = torch.zeros((), dtype=torch.int32, device=c.device)
+    fused = (c, adj, compact, counts, rows, t0)
+    kw = dict(ell=ell, n_chunk=n_chunk, n_max=npr_b)
+    s_ids, valid = L.plan_sets(compact, counts, ranks, ell=ell, n_max=npr_b, n=n)
+    gathered = L.gather_sets(c, adj, compact, rows, s_ids, valid)
+
+    def plain(d):
+        return sgrid.sgrid_plain(*gathered, s_ids, tau + d)
+
+    def plain_path():
+        s, v = L.plan_sets(compact, counts, ranks, ell=ell, n_max=npr_b, n=n)
+        return sgrid.sgrid_plain(*L.gather_sets(c, adj, compact, rows, s, v), s, tau)
+
+    t_p, n_diff, n_out, n_band, err = sgrid_check(
+        torch, label, sgrid.sgrid_fused(*fused, tau, c_t=c_t, **kw), plain)
+    k_ms = cuda_ms(torch, lambda: sgrid.sgrid_fused(*fused, tau, c_t=c_t, **kw))
+    p_ms = cuda_ms(torch, plain_path, reps=3, warmup=1)
+    g_ms = cuda_ms(torch, lambda: L.gather_s(c, adj, compact, counts, rows, ranks, ell=ell,
+                                             n_max=npr_b))
+    plan_ms = cuda_ms(torch, lambda: L.plan_sets(compact, counts, ranks, ell=ell, n_max=npr_b,
+                                                 n=n))
+    gk_ms = cuda_ms(torch, lambda: sgrid.sgrid(*gathered, s_ids, tau))
+    t_ms = cuda_ms(torch, lambda: c.T.contiguous())
+    cells, tested, inverses, found = sgrid_work(torch, t_p, gathered[-1], valid.sum(1))
+    bytes_moved = n * n * 5 + compact.numel() * 4 + n * 4 + n * npr_b * (ell + 1) * 4
+    b_ms, b_by = bound(bytes_moved, inverses * cholinv_ops(ell) + tested * cisweep_ops(ell))
+    print(f"kernel sgrid (fused) {label}: n_l={n} T={n_chunk} n′={npr_b} ℓ={ell}: {found} of "
+          f"{n * npr_b} slots separated; winners differ in {n_diff} cells ({n_out} outside "
+          f"the τ band, {n_band} band cells); kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound "
+          f"{b_ms:.5f} ms ({b_by}: {bytes_moved} bytes, {tested} tested of {cells} visited "
+          f"cells, {inverses} set inverses); on the same launch: levels.gather_s {g_ms:.4f} ms "
+          f"(plan_sets alone {plan_ms:.4f}), the gathered entry {gk_ms:.4f} ms, Cᵀ copy "
+          f"{t_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 def synthetic_launch(torch, n_l, t_len, npr, ell, seed, dev):
@@ -519,8 +583,7 @@ def section56(torch, dev):
     adj1, _, _ = engines.run_level(c, adj0, sep0, 1, tau[1])
     print(f"§5.6 instance n={n} m={m} density {cfg['density']}: level 0 keeps "
           f"{int(adj0.sum()) // 2} edges, level 1 {int(adj1.sum()) // 2}")
-    sgrid_phase(torch, "§5.6 first ℓ=2 launch",
-                gathered_launch(torch, c, adj1, 2, L.GRID_CELL_BUDGET), tau[2])
+    sgrid_fused_phase(torch, "§5.6 first ℓ=2 launch", c, adj1, 2, L.GRID_CELL_BUDGET, tau[2])
 
     runs, c64 = {}, c.double().cpu().numpy()
     for label, run_kw in (("auto", {}), ("S-grid", dict(engine="S-grid"))):
@@ -705,9 +768,30 @@ def gaussian(torch, rows, launches):
         stop = torch.where(kwin_p[i0:i1] < level1.BIG, kwin_p[i0:i1], n - 1)
         cells += int((kmask & alive[:, :, None] & (ks[None, None, :] <= stop[:, :, None])).sum())
     b_ms, b_by = bound(10 * n * n, L1_OPS_PER_CELL * cells)
+    # 32-k steps: a pair is done at the chunk of its least own separator
+    # (its `found` is set by then), else it walks every k. A pair's own
+    # walk takes its own steps; the earlier design walked a 16×16 tile of pairs
+    # in lockstep until its slowest alive pair was done; the kernel's warp
+    # takes 128 k a step
+    alive0 = adj0 & ~torch.eye(n, dtype=torch.bool, device=dev)
+    stop = torch.where(kwin_p < level1.BIG, kwin_p, n - 1)
+    steps = torch.where(alive0, stop // 32 + 1, 0)
+    pair_steps = int(steps.sum())
+    warp128 = torch.where(alive0, stop // 128 + 1, 0)
+    warp_steps = int(warp128.sum())
+    row_steps = warp128.sum(dim=1, dtype=torch.int64)
+    pad = (-n) % 16
+    tiles = torch.nn.functional.pad(steps, (0, pad, 0, pad)).reshape(
+        (n + pad) // 16, 16, (n + pad) // 16, 16).amax(dim=(1, 3))
+    tile_steps = int(tiles.sum())
     print(f"kernel level1 n={n}: removed differs in {d_rem} cells ({o_rem} outside the τ band), "
           f"kwin differs in {d_kw} ({o_kw} outside); kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
-          f"bound {b_ms:.4f} ms ({b_by}, {cells} tested cells)")
+          f"bound {b_ms:.4f} ms ({b_by}, {cells} tested cells); 32-k steps: the pairs' own "
+          f"walks {pair_steps} over {int(alive0.sum())} alive pairs, 16×16 lockstep "
+          f"tiles {tile_steps} block-steps = {tile_steps * 256} pair-steps "
+          f"({tile_steps * 256 / max(pair_steps, 1):.2f}× the pairs' own); the kernel's "
+          f"128-k warp steps {warp_steps} (a row's: mean {float(row_steps.float().mean()):.1f}, "
+          f"max {int(row_steps.max())})")
     check(o_rem == 0 and o_kw == 0, "level1 decisions differ outside the τ band")
     rows["level1"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=None)
@@ -762,10 +846,10 @@ def gaussian(torch, rows, launches):
     rows["cisweep"] = dict(max_abs_err=1.0 if o_sw else 0.0, ms=k_ms, plain_ms=p_ms,
                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    # sgrid at the first level-1 launch of "S-grid", and on seeded SPD
-    # launches at ℓ = 3 and ℓ = 8
-    rows["sgrid"] = sgrid_phase(torch, "NCI-60 first ℓ=1 launch",
-                                gathered_launch(torch, c, adj0, 1, L.GRID_CELL_BUDGET), tau[1])
+    # sgrid at the first level-1 launch of "S-grid" (the fused entry), and
+    # the gathered entry on seeded SPD launches at ℓ = 3 and ℓ = 8
+    rows["sgrid"] = sgrid_fused_phase(torch, "NCI-60 first ℓ=1 launch", c, adj0, 1,
+                                      L.GRID_CELL_BUDGET, tau[1])
     for ell, seed in ((3, 3), (8, 8)):
         sgrid_phase(torch, f"synthetic SPD ℓ={ell}",
                     synthetic_launch(torch, 1000, 64, 64, ell, seed, dev), 0.05)

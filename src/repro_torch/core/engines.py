@@ -76,12 +76,16 @@ def resolve(engine, ell: int, test=None) -> str:
 
 def run_level(c, adj, sep, ell: int, tau: float, engine="auto",
               cell_budget: int = DEFAULT_CELL_BUDGET, rank_dtype: torch.dtype = torch.int32,
-              test=None, bucket: bool = True, pipeline_depth: int = 1):
+              test=None, bucket: bool = True, chunk_fn_s=None, chunk_fn_e=None,
+              pipeline_depth: int = 1):
     """Run one level on the resolved engine: returns (adj, sep, stats),
     stats["engine"] naming the concrete path taken. Under a discrete
     ``test`` the C slot carries its ``DiscreteStats`` and τ is α.
     ``pipeline_depth`` ≥ 2 pipelines the "S" worklist only; the other
-    engines run depth 1, as in the reference."""
+    engines run depth 1, as in the reference. ``chunk_fn_s`` replaces the
+    chunk function of "S", "S-kernel" and "S-grid", ``chunk_fn_e`` that
+    of "E"; the G² and dense ℓ = 1 engines ignore both, as the
+    reference's do."""
     from repro_torch.kernels import ops
 
     name = resolve(engine, ell, test)
@@ -100,17 +104,21 @@ def run_level(c, adj, sep, ell: int, tau: float, engine="auto",
     elif name == "L1-dense":
         return _run_level_dense_l1(c, adj, sep, tau, rank_dtype)
     elif name == "S-kernel":
-        adj, sep, st = L.run_level(c, adj, sep, ell, tau, chunk_fn_s=ops.chunk_s_kernel, **kw)
+        adj, sep, st = L.run_level(c, adj, sep, ell, tau,
+                                   chunk_fn_s=chunk_fn_s or ops.chunk_s_kernel, **kw)
     elif name == "S-grid":
-        # a launch's memory is its gather alone, so the default budget rises
-        # to the per-launch one; an explicit budget is kept (tests force
-        # several launches a level with it)
+        # the launch plan keeps the reference's per-launch budget (each
+        # level's launch count equals the reference's); an explicit budget
+        # is kept (tests force several launches a level with it)
         if cell_budget == DEFAULT_CELL_BUDGET:
             kw["cell_budget"] = L.GRID_CELL_BUDGET
-        adj, sep, st = L.run_level(c, adj, sep, ell, tau, chunk_fn_s=ops.chunk_s_grid, **kw)
+        if chunk_fn_s is None:
+            # the fused sgrid reads C[j, S] along rows of Cᵀ: one copy a level
+            chunk_fn_s = functools.partial(ops.chunk_s_grid, c_t=c.T.contiguous())
+        adj, sep, st = L.run_level(c, adj, sep, ell, tau, chunk_fn_s=chunk_fn_s, **kw)
     else:
-        adj, sep, st = L.run_level(c, adj, sep, ell, tau, engine=name,
-                                   pipeline_depth=pipeline_depth, **kw)
+        adj, sep, st = L.run_level(c, adj, sep, ell, tau, engine=name, chunk_fn_s=chunk_fn_s,
+                                   chunk_fn_e=chunk_fn_e, pipeline_depth=pipeline_depth, **kw)
     st["engine"] = name
     return adj, sep, st
 

@@ -2,8 +2,9 @@
 
 * ``level0`` / ``level0_g2``: the unconditional pass (paper Alg. 3), for
   the Gaussian and the discrete test.
-* ``plan_sets`` / ``gather_s``: unrank each chunk's conditioning sets and
-  gather what the CI math reads, with the full validity mask.
+* ``plan_sets`` / ``gather_s`` (``gather_sets`` for planned sets): unrank
+  each chunk's conditioning sets and gather what the CI math reads, with
+  the full validity mask.
 * ``_inv_spd`` / ``ci_sweep`` / ``chunk_s``: the "S" engine, cuPC-S as
   PyTorch ops, the correctness anchor; ``chunk_s_tests`` /
   ``chunk_s_commit`` split it for the pipelined host loop.
@@ -171,10 +172,16 @@ def _set_mask(adj, compact, rows, s_ids, valid_set, n):
 def gather_s(c, adj, compact, counts, rows, ranks, *, ell: int, n_max: int):
     """The cuPC-S worklist prologue: returns (m2 (n_l,T,ℓ,ℓ), ci_s (n_l,T,ℓ),
     cj_s (n_l,T,n′,ℓ), cij (n_l,T,n′), mask (n_l,T,n′), s_ids (n_l,T,ℓ))."""
+    s_ids, valid_set = plan_sets(compact, counts, ranks, ell=ell, n_max=n_max, n=c.shape[0])
+    return (*gather_sets(c, adj, compact, rows, s_ids, valid_set), s_ids)
+
+
+def gather_sets(c, adj, compact, rows, s_ids, valid_set):
+    """``gather_s`` for sets already planned by ``plan_sets``: (m2, ci_s,
+    cj_s, cij, mask). cij is an expanded view, stride 0 over T."""
     n = c.shape[0]
     n_l, npr = compact.shape
-    n_chunk = ranks.shape[0]
-    s_ids, valid_set = plan_sets(compact, counts, ranks, ell=ell, n_max=n_max, n=n)
+    n_chunk = s_ids.shape[1]
     s = s_ids.long()
     r = rows.long()
     j_ids = torch.clamp(compact, 0, n - 1).long()
@@ -183,7 +190,7 @@ def gather_s(c, adj, compact, counts, rows, ranks, *, ell: int, n_max: int):
     cj_s = c[j_ids[:, None, :, None], s[:, :, None, :]]
     cij = c[r[:, None], j_ids][:, None, :].expand(n_l, n_chunk, npr)
     mask = _set_mask(adj, compact, rows, s_ids, valid_set, n)
-    return m2, ci_s, cj_s, cij, mask, s_ids
+    return m2, ci_s, cj_s, cij, mask
 
 
 # ------------------------------------------------------------- the "S" engine

@@ -31,7 +31,7 @@ from .cit import DiscreteStats, correlation_from_samples, encode_discrete, resol
 from .combinadics import MAX_LEVEL
 from .orient import cpdag_from_skeleton
 
-#: slots per sepset (-1 padded): the reference's default depth
+#: default slots per sepset (-1 padded), as the reference's ``sepset_depth``
 SEPSET_DEPTH = 8
 
 
@@ -64,9 +64,10 @@ def _tensor(a) -> torch.Tensor:
 
 
 def pc_from_corr(c, m: int, alpha: float = 0.01, engine="auto",
-                 max_level: int | None = None, cell_budget: int = E.DEFAULT_CELL_BUDGET,
-                 validate: bool = True, test=None, device=None,
-                 wide_ranks: bool = False, bucket: bool = True,
+                 max_level: int | None = None, sepset_depth: int = SEPSET_DEPTH,
+                 cell_budget: int = E.DEFAULT_CELL_BUDGET, orient: bool = True,
+                 chunk_fn_s=None, chunk_fn_e=None, validate: bool = True, test=None,
+                 device=None, wide_ranks: bool = False, bucket: bool = True,
                  pipeline_depth: int = 1) -> PCRun:
     """PC-stable from a correlation matrix c (n, n) and its sample count m.
 
@@ -75,7 +76,13 @@ def pc_from_corr(c, m: int, alpha: float = 0.01, engine="auto",
     ranks in int64 (the reference needs jax_enable_x64 for that).
     bucket=False plans each level at its exact max degree;
     pipeline_depth ≥ 2 keeps that many rank chunks' tests queued ahead of
-    their commits on the "S" worklist (equal results)."""
+    their commits on the "S" worklist (equal results).
+
+    sepset_depth: slots per recorded sepset; it also caps the levels run.
+    orient=False skips orientation: the returned "CPDAG" is the skeleton.
+    chunk_fn_s / chunk_fn_e replace the chunk function of the "S" and "E"
+    worklists (and of "S-kernel" and "S-grid", whose own kernels they
+    stand in for), with ``levels.run_level``'s chunk contract."""
     dev = D.resolve_device(device)
     test = resolve_citest(test, m, alpha)
     if test.kind != "gaussian":
@@ -88,10 +95,12 @@ def pc_from_corr(c, m: int, alpha: float = 0.01, engine="auto",
         if validate:
             V.validate_corr(c, m, max_level=max_level)
         c = _tensor(c).to(dev, torch.float32).contiguous()
-        lmax = min(max_level if max_level is not None else MAX_LEVEL, SEPSET_DEPTH)
-        run = _pc_run_host_loop(c, test, engine=engine, lmax=lmax, cell_budget=cell_budget,
-                                tracer=tracer, rank_dtype=D.rank_dtype(wide_ranks),
-                                bucket=bucket, pipeline_depth=pipeline_depth)
+        lmax = min(max_level if max_level is not None else MAX_LEVEL, sepset_depth)
+        run = _pc_run_host_loop(c, test, engine=engine, lmax=lmax, sepset_depth=sepset_depth,
+                                cell_budget=cell_budget, orient=orient, chunk_fn_s=chunk_fn_s,
+                                chunk_fn_e=chunk_fn_e, tracer=tracer,
+                                rank_dtype=D.rank_dtype(wide_ranks), bucket=bucket,
+                                pipeline_depth=pipeline_depth)
     run.timings_s = tracer.timings()
     return run
 
@@ -103,8 +112,9 @@ def _check_engine(engine, test):
         E.resolve(engine, 1, test)
 
 
-def _pc_run_host_loop(stats, test, *, engine, lmax, cell_budget, tracer, rank_dtype,
-                      bucket=True, pipeline_depth=1):
+def _pc_run_host_loop(stats, test, *, engine, lmax, sepset_depth, cell_budget, orient,
+                      chunk_fn_s, chunk_fn_e, tracer, rank_dtype, bucket=True,
+                      pipeline_depth=1):
     """The per-level host loop, one span per level; each span waits for the
     level's work on the card before it closes. ``stats`` is the test's
     sufficient statistic: C (n, n) or ``DiscreteStats`` with (m, n) codes."""
@@ -112,7 +122,7 @@ def _pc_run_host_loop(stats, test, *, engine, lmax, cell_budget, tracer, rank_dt
     n, dev = arr.shape[-1], arr.device
     with tracer.span("level0", level=0) as sp:
         adj = test.level0(stats, test.tau(0, insufficient="warn"))
-        sep = torch.full((n, n, SEPSET_DEPTH), -1, dtype=torch.int32, device=dev)
+        sep = torch.full((n, n, sepset_depth), -1, dtype=torch.int32, device=dev)
         sep[:, :, 0] = torch.where(adj, -1, -2).to(torch.int32)
         sp.sync(adj)
 
@@ -126,22 +136,23 @@ def _pc_run_host_loop(stats, test, *, engine, lmax, cell_budget, tracer, rank_dt
             adj, sep, st = E.run_level(
                 stats, adj, sep, ell, test.tau(ell, insufficient="warn"), engine=engine,
                 cell_budget=cell_budget, rank_dtype=rank_dtype, test=test, bucket=bucket,
-                pipeline_depth=pipeline_depth)
+                chunk_fn_s=chunk_fn_s, chunk_fn_e=chunk_fn_e, pipeline_depth=pipeline_depth)
             sp.sync(adj).set(**{k: st[k] for k in ("engine", "chunks", "dispatches",
                                                    "total_sets", "npr_bucket") if k in st})
         stats_out.append({"level": ell, **st})
         ell += 1
 
     with tracer.span("orient") as sp:
-        cpdag = cpdag_from_skeleton(adj, sep)
+        cpdag = cpdag_from_skeleton(adj, sep) if orient else adj
         sp.sync(cpdag)
 
     return PCRun(adj=adj.cpu().numpy(), cpdag=cpdag.cpu().numpy(),
                  sepsets=sep.cpu().numpy(), levels_run=ell - 1, level_stats=stats_out)
 
 
-def _pc_discrete(x, test, *, engine="auto", max_level=None, cell_budget=E.DEFAULT_CELL_BUDGET,
-                 validate=True, device=None, wide_ranks=False, bucket=True,
+def _pc_discrete(x, test, *, engine="auto", max_level=None, sepset_depth=SEPSET_DEPTH,
+                 cell_budget=E.DEFAULT_CELL_BUDGET, orient=True, chunk_fn_s=None,
+                 chunk_fn_e=None, validate=True, device=None, wide_ranks=False, bucket=True,
                  pipeline_depth=1) -> PCRun:
     """The discrete G² route of ``pc``: encode the level codes, bind the
     test's (m, r) to the data (r, the run-wide max arity, is the code
@@ -157,13 +168,15 @@ def _pc_discrete(x, test, *, engine="auto", max_level=None, cell_budget=E.DEFAUL
         if max_level is None:
             # cap where the table still fits; an explicit deeper max_level
             # is refused by check_level
-            lmax = min(MAX_LEVEL, SEPSET_DEPTH, test.max_supported_level())
+            lmax = min(MAX_LEVEL, sepset_depth, test.max_supported_level())
         else:
-            lmax = min(max_level, SEPSET_DEPTH)
+            lmax = min(max_level, sepset_depth)
         test.check_level(lmax)
-        run = _pc_run_host_loop(stats, test, engine=engine, lmax=lmax, cell_budget=cell_budget,
-                                tracer=tracer, rank_dtype=D.rank_dtype(wide_ranks),
-                                bucket=bucket, pipeline_depth=pipeline_depth)
+        run = _pc_run_host_loop(stats, test, engine=engine, lmax=lmax, sepset_depth=sepset_depth,
+                                cell_budget=cell_budget, orient=orient, chunk_fn_s=chunk_fn_s,
+                                chunk_fn_e=chunk_fn_e, tracer=tracer,
+                                rank_dtype=D.rank_dtype(wide_ranks), bucket=bucket,
+                                pipeline_depth=pipeline_depth)
     run.timings_s = tracer.timings()
     return run
 

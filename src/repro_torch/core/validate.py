@@ -50,7 +50,7 @@ def _as_host(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _check_m(m: int, n: int, max_level: int | None):
+def _check_m(m: int, n: int, max_level: int | None, strict_rank: bool):
     lmax = 3 if max_level is None else int(max_level)
     if m <= lmax + 3:
         raise RankDeficientError(
@@ -66,11 +66,16 @@ def _check_m(m: int, n: int, max_level: int | None):
             "rank are tested against a singular block (regularised, but "
             "biased). Prefer more samples or a lower max_level."
         )
+        if strict_rank:
+            raise RankDeficientError(msg)
         warnings.warn(msg, stacklevel=3)
 
 
-def validate_samples(x, max_level: int | None = None) -> tuple[int, int]:
-    """Validate a raw sample matrix x: (m, n). Returns (m, n)."""
+def validate_samples(x, max_level: int | None = None,
+                     strict_rank: bool = False) -> tuple[int, int]:
+    """Validate a raw sample matrix x: (m, n). Returns (m, n).
+    ``strict_rank`` turns the m < n warning into a ``RankDeficientError``
+    (the serving layer's admission policy)."""
     x = _as_host(x)
     if x.ndim != 2:
         raise ValidationError(f"expected a (m, n) sample matrix; got shape {x.shape}")
@@ -94,13 +99,15 @@ def validate_samples(x, max_level: int | None = None) -> tuple[int, int]:
             "zero-variance variable is undefined. Drop the constant columns "
             "or add measurement noise before calling pc()."
         )
-    _check_m(m, n, max_level)
+    _check_m(m, n, max_level, strict_rank)
     return m, n
 
 
-def validate_corr(c, m: int, max_level: int | None = None) -> int:
+def validate_corr(c, m: int, max_level: int | None = None, strict_rank: bool = False,
+                  sym_tol: float = 1e-4) -> int:
     """Validate a correlation matrix c: (n, n) plus its sample count m.
-    Returns n."""
+    Returns n. ``strict_rank`` as in ``validate_samples``; ``sym_tol`` is
+    the largest |C − Cᵀ| admitted."""
     c = _as_host(c)
     if c.ndim != 2 or c.shape[0] != c.shape[1]:
         raise BadCorrelationError(
@@ -114,7 +121,7 @@ def validate_corr(c, m: int, max_level: int | None = None) -> int:
             f"correlation matrix contains {len(bad)} non-finite value(s) "
             f"(first at C[{i}, {j}] = {c[i, j]!r})."
         )
-    if not np.allclose(c, c.T, atol=1e-4, rtol=0.0):
+    if not np.allclose(c, c.T, atol=sym_tol, rtol=0.0):
         ij = np.unravel_index(np.abs(c - c.T).argmax(), c.shape)
         raise BadCorrelationError(
             f"correlation matrix is not symmetric (max |C - Cᵀ| at "
@@ -130,7 +137,7 @@ def validate_corr(c, m: int, max_level: int | None = None) -> int:
         raise BadCorrelationError(
             f"correlation entries must lie in [-1, 1]; C{tuple(int(v) for v in ij)} "
             f"= {c[ij]:.6g}.")
-    _check_m(int(m), n, max_level)
+    _check_m(int(m), n, max_level, strict_rank)
     return n
 
 

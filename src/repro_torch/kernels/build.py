@@ -1,6 +1,7 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` file exposes a plain C function (no PyTorch headers),
+Every ``csrc/*.cu`` file exposes plain C functions (no PyTorch headers;
+``csrc/*.cuh`` holds device code two of them share),
 so ``nvcc`` compiles each in seconds. At first use :func:`library` starts
 one ``nvcc -c`` per source, all at once, links the objects into one
 shared library under ``src/repro_torch/_build/`` (listed in
@@ -14,7 +15,8 @@ against τ, and the default ``-prec-div``/``-prec-sqrt`` and no-FTZ
 settings keep them as close to the reference as the card allows.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made (corr's
-split-K path is two: the splits and their reduction); a run
+split-K path is two: the splits and their reduction; sgrid's two entries,
+gathered and fused, both count as "sgrid"); a run
 resets it with :func:`reset_launches` and reads it afterwards to show
 which kernels its path went through.
 """
@@ -46,12 +48,16 @@ _F = ctypes.c_float
 #: launch's cudaError_t as an int.
 SIGNATURES = {
     "repro_corr_xtx": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "repro_level1_dense": (_P, _P, _P, _P, _I, _F, _P),
+    "repro_level1_dense": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
+    "repro_atanh_window": (_P, _P, _P, _I, _F, _F, _F, _P),
     "repro_cholinv": (_P, _P, _P, _P, _P, _LL, _I, _F, _P),
     "repro_cisweep": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _P),
     "repro_level0": (_P, _P, _I, _F, _P),
     "repro_gsq": (_P, _P, _LL, _I, _I, _I, _P),
-    "repro_sgrid": (_P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    "repro_sgrid": (_P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
+                    _P),
+    "repro_sgrid_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _F, _F, _F, _F, _P),
 }
 
 #: kernel name → launches made through its wrapper (see module docstring)
@@ -89,8 +95,9 @@ def _sources() -> list[Path]:
 
 
 def _digest(sources) -> str:
+    """A hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted([*sources, *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

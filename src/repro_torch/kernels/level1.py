@@ -14,6 +14,40 @@ import torch
 from . import build
 
 BIG = 2**30
+#: half-width of the kernel's atanh window around τ, relative, in z
+WINDOW = 2.0**-16
+
+
+def atanh_window(tau: float) -> tuple[float, float]:
+    """(lo, hi), float32 values with lo < tanh τ < hi: the level-1 and
+    sgrid kernels decide |ρ| < lo independent and |ρ| > hi dependent
+    without an atanh (``csrc/window.cuh``). They sit
+    τ·2^-16 inside and outside the threshold in z, computed in float64
+    from the float32 τ the kernel compares against and rounded outward,
+    so every |ρ| outside [lo, hi] has |atanh ρ| at least that far from τ:
+    more than 40 times atanhf's documented 3-ulp error."""
+    t = float(np.float32(tau))
+    lo = np.float32(np.tanh(t * (1.0 - WINDOW)))
+    if float(lo) > np.tanh(t * (1.0 - WINDOW)):
+        lo = np.nextafter(lo, np.float32(0))
+    hi = np.float32(np.tanh(t * (1.0 + WINDOW)))
+    if float(hi) < np.tanh(t * (1.0 + WINDOW)):
+        hi = np.nextafter(hi, np.float32(2))
+    return float(lo), float(hi)
+
+
+def atanh_window_check(rho: torch.Tensor, tau: float):
+    """The kernel's level-1 decision on CUDA float32 ρ values, with and
+    without the atanh window: (windowed, |atanhf ρ| ≤ τ), uint8 each. A
+    check of the window, not counted as a level-1 launch."""
+    build.require_cuda(rho)
+    pref = torch.empty(rho.shape, dtype=torch.uint8, device=rho.device)
+    direct = torch.empty_like(pref)
+    if rho.numel():
+        build.launch("level1", "repro_atanh_window", rho.device, rho.data_ptr(),
+                     pref.data_ptr(), direct.data_ptr(), rho.numel(), float(tau),
+                     *atanh_window(tau), kernels=0)
+    return pref, direct
 
 
 def level1_dense_plain(c: torch.Tensor, adj: torch.Tensor, tau: float, *,
@@ -63,9 +97,15 @@ def level1_dense_kernel(c: torch.Tensor, adj: torch.Tensor, tau: float):
         return level1_dense_plain(c, adj, tau)
     adj8 = adj.view(torch.uint8) if adj.dtype == torch.bool else adj
     build.require_cuda(c, adj8)
+    # rows padded with zeros to a multiple of 4 floats: the kernel reads
+    # four k a lane in one 16-byte load
+    pad = -n % 4
+    c_pad = torch.nn.functional.pad(c, (0, pad))
+    adj_pad = torch.nn.functional.pad(adj8, (0, pad))
     removed = torch.empty((n, n), dtype=torch.uint8, device=c.device)
     kwin = torch.empty((n, n), dtype=torch.int32, device=c.device)
     if n:
-        build.launch("level1", "repro_level1_dense", c.device, c.data_ptr(), adj8.data_ptr(),
-                     removed.data_ptr(), kwin.data_ptr(), n, float(tau))
+        build.launch("level1", "repro_level1_dense", c.device, c_pad.data_ptr(),
+                     adj_pad.data_ptr(), removed.data_ptr(), kwin.data_ptr(), n, n + pad,
+                     float(tau), *atanh_window(tau))
     return removed.view(torch.bool), kwin

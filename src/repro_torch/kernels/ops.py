@@ -93,7 +93,8 @@ def chunk_s_kernel(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max
 
 
 def ci_shared_grid(m2, ci_s, cj_s, cij, mask, s_ids, tau: float, *, ell: int):
-    """Grid-resident cuPC-S over one gathered launch, batch-first: m2
+    """Grid-resident cuPC-S over one gathered launch (the sgrid kernel's
+    gathered entry; the "S-grid" engine takes the fused one), batch-first: m2
     (n_l,T,ℓ,ℓ), ci_s (n_l,T,ℓ), cj_s (n_l,T,n′,ℓ), cij/mask (n_l,T,n′),
     s_ids (n_l,T,ℓ) → (t_loc (n_l, n′) int32, the least separating
     launch-local rank or ``sgrid.SENTINEL``; s_win (n_l, n′, ℓ) int32, its
@@ -113,26 +114,26 @@ def _grid_winners(t_loc, s_win, t0):
     return t_win, found, s_win
 
 
-def chunk_s_grid_tests(c, adj, compact, counts, rows, t0, tau, *, ell, n_chunk, n_max):
+def chunk_s_grid_tests(c, adj, compact, counts, rows, t0, tau, *, ell, n_chunk, n_max,
+                       c_t=None):
     """The tests half of the grid engine for a block of rows: ranks
-    [t0, t0 + n_chunk) gathered by ``levels.gather_s`` and swept in one
-    sgrid launch. Returns (t_win (n_l, n′), removed_slot, s_win (n_l, n′, ℓ))."""
-    from repro_torch.core import levels as L
-
-    ranks = L._chunk_ranks(t0, n_chunk)
-    m2, ci_s, cj_s, cij, mask, s_ids = L.gather_s(
-        c, adj, compact, counts, rows, ranks, ell=ell, n_max=n_max)
-    t_loc, s_win = ci_shared_grid(m2, ci_s, cj_s, cij, mask, s_ids, tau, ell=ell)
+    [t0, t0 + n_chunk) swept in one fused sgrid launch that unranks the
+    sets and reads C itself (no gather; ``c_t``, Cᵀ contiguous, is made per
+    call when not given). Returns (t_win (n_l, n′), removed_slot,
+    s_win (n_l, n′, ℓ))."""
+    t_loc, s_win = _sgrid.sgrid_fused(c, adj, compact, counts, rows, t0, tau, ell=ell,
+                                      n_chunk=n_chunk, n_max=n_max, c_t=c_t)
     return _grid_winners(t_loc, s_win, t0)
 
 
-def chunk_s_grid(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max):
+def chunk_s_grid(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max, c_t=None):
     """Same contract as ``levels.chunk_s``, with ranks [t0, t0 + n_chunk)
-    in one sgrid launch and its commit; returns the updated (adj, sep)."""
+    in one sgrid launch and its commit; returns the updated (adj, sep).
+    ``engines.run_level`` hands over ``c_t`` (Cᵀ) made once a level."""
     from repro_torch.core import levels as L
 
     n = compact.shape[0]
     rows = torch.arange(n, dtype=torch.int32, device=c.device)
     t_win, removed_slot, s_win = chunk_s_grid_tests(
-        c, adj, compact, counts, rows, t0, tau, ell=ell, n_chunk=n_chunk, n_max=n_max)
+        c, adj, compact, counts, rows, t0, tau, ell=ell, n_chunk=n_chunk, n_max=n_max, c_t=c_t)
     return L._global_commit(adj, sep, compact, rows, t_win, removed_slot, s_win, ell)

@@ -1,12 +1,20 @@
 """Grid-resident cuPC-S: the kernel of ``csrc/sgrid.cu`` and its plain
-PyTorch version.
+PyTorch version, behind two entries.
 
-Port of ``src/repro/kernels/sgrid.py::sgrid_kernel`` behind the
-reference's public function ``ops.ci_shared_grid``, in its batch-first
-layout: m2 (n_l, T, ℓ, ℓ), ci_s (n_l, T, ℓ), cj_s (n_l, T, n′, ℓ), cij and
-mask (n_l, T, n′), s_ids (n_l, T, ℓ) → t_loc (n_l, n′) int32, the least
-launch-local rank whose set separates (row, slot), ``SENTINEL`` where none
-does, and s_win (n_l, n′, ℓ) int32, that rank's set (0 where none).
+Port of ``src/repro/kernels/sgrid.py::sgrid_kernel``. Both entries return
+t_loc (n_l, n′) int32, the least launch-local rank whose set separates
+(row, slot), ``SENTINEL`` where none does, and s_win (n_l, n′, ℓ) int32,
+that rank's set (0 where none).
+
+* ``sgrid`` takes the reference's ``ops.ci_shared_grid`` inputs, gathered
+  batch-first: m2 (n_l, T, ℓ, ℓ), ci_s (n_l, T, ℓ), cj_s (n_l, T, n′, ℓ),
+  cij and mask (n_l, T, n′), s_ids (n_l, T, ℓ).
+* ``sgrid_fused`` takes C itself with the rows' compacted neighbour lists
+  and counts, the adjacency and the launch's first rank; the kernel
+  unranks the sets and reads every value the sweep needs from C, so no
+  (n_l, T, n′) tensor is formed and no unrank loop runs on the host. Its
+  plain version is ``levels.plan_sets``, ``levels.gather_sets`` and
+  ``sgrid_plain``.
 
 Both versions follow ``_inverse_tiles`` and the sweep of the reference's
 ``_sgrid_kernel`` branch for branch: 1/max(x, 1e-8) at ℓ = 1, the
@@ -24,6 +32,7 @@ import torch
 
 from . import build
 from .cholinv import JITTER, MAX_ELL
+from .level1 import atanh_window
 
 #: t_loc where no rank of the launch separates the (row, slot)
 SENTINEL = 2**30
@@ -152,5 +161,58 @@ def sgrid(m2, ci_s, cj_s, cij, mask, s_ids, tau: float):
         build.launch("sgrid", "repro_sgrid", m2.device, m2.data_ptr(), ci_s.data_ptr(),
                      cj_s.data_ptr(), cij.data_ptr(), cij.stride(0), cij.stride(1),
                      mask8.data_ptr(), s_ids.data_ptr(), t_loc.data_ptr(), s_win.data_ptr(),
-                     n_l, t_len, npr, ell, float(tau), JITTER)
+                     n_l, t_len, npr, ell, float(tau), JITTER, *atanh_window(tau))
+    return t_loc, s_win
+
+
+def sgrid_fused(c, adj, compact, counts, rows, t0, tau: float, *, ell: int, n_chunk: int,
+                n_max: int, c_t=None):
+    """The sweep of ranks [t0, t0 + n_chunk) read straight from C: c (n, n)
+    float32, adj (n, n) bool or uint8, the neighbour lists compact
+    (n_l, n′) int32 and counts (n_l,) int32 of the global rows ``rows``
+    (n_l,) int32, t0 a 0-d int32 or int64 tensor, n_max the unrank bound
+    (``levels.plan_sets``'s). The kernel unranks each row's sets itself;
+    c_t is Cᵀ made contiguous, which it reads C[j, S] from (made here when
+    not given). A CUDA tensor runs the hand kernel; a CPU tensor the plain
+    version: ``plan_sets``, ``gather_sets`` and ``sgrid_plain``."""
+    from repro_torch.core import levels as L
+
+    n = c.shape[0]
+    n_l, npr = compact.shape
+    if (c.shape != (n, n) or adj.shape != (n, n) or counts.shape != (n_l,)
+            or rows.shape != (n_l,) or t0.dim() != 0):
+        raise ValueError("sgrid_fused shapes disagree: c and adj (n, n), compact (n_l, n′), "
+                         "counts and rows (n_l,), t0 a scalar")
+    if c.dtype != torch.float32 or adj.dtype not in (torch.bool, torch.uint8):
+        raise ValueError(f"c must be float32 and adj bool or uint8, got {c.dtype} and "
+                         f"{adj.dtype}")
+    if any(t.dtype != torch.int32 for t in (compact, counts, rows)):
+        raise ValueError("compact, counts and rows must be int32")
+    if t0.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"t0 must be int32 or int64, got {t0.dtype}")
+    if not 1 <= ell <= MAX_ELL:
+        raise ValueError(f"ℓ must lie in 1..{MAX_ELL}, got {ell}")
+    if n_chunk >= SENTINEL:
+        raise ValueError(f"a launch holds at most {SENTINEL - 1} ranks, got {n_chunk}")
+    if c.device.type == "cpu":
+        ranks = L._chunk_ranks(t0, n_chunk)
+        s_ids, valid = L.plan_sets(compact, counts, ranks, ell=ell, n_max=n_max, n=n)
+        m2, ci_s, cj_s, cij, mask = L.gather_sets(c, adj.to(torch.bool), compact, rows, s_ids,
+                                                  valid)
+        return sgrid_plain(m2, ci_s, cj_s, cij, mask, s_ids, tau)
+    if c_t is None:
+        c_t = c.T.contiguous()
+    if c_t.shape != (n, n) or c_t.dtype != torch.float32:
+        raise ValueError("c_t must be Cᵀ, (n, n) float32")
+    adj8 = adj.view(torch.uint8) if adj.dtype == torch.bool else adj
+    table = L._jtable(n_max, torch.int64, c.device)
+    build.require_cuda(c, c_t, adj8, compact, counts, rows, t0, table)
+    t_loc = torch.empty((n_l, npr), dtype=torch.int32, device=c.device)
+    s_win = torch.empty((n_l, npr, ell), dtype=torch.int32, device=c.device)
+    if n_l and npr:
+        build.launch("sgrid", "repro_sgrid_fused", c.device, c.data_ptr(), c_t.data_ptr(),
+                     adj8.data_ptr(), rows.data_ptr(), compact.data_ptr(), counts.data_ptr(),
+                     table.data_ptr(), table.shape[1], t0.data_ptr(),
+                     int(t0.dtype == torch.int64), t_loc.data_ptr(), s_win.data_ptr(), n, n_l,
+                     n_chunk, npr, n_max, ell, float(tau), JITTER, *atanh_window(tau))
     return t_loc, s_win

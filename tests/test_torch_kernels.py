@@ -12,7 +12,8 @@ tensors and so run their plain PyTorch versions. Tolerances:
   port at τ ± 1e-4 as tests/test_kernels.py:102-108 does; those cells
   are counted and asserted few.
 
-``test_cuda_kernels_match_plain`` needs the card and skips without one.
+``test_cuda_kernels_match_plain``, ``test_cuda_level1_matches_plain`` and
+``test_cuda_atanh_window`` need the card and skip without one.
 """
 import numpy as np
 import pytest
@@ -251,3 +252,53 @@ def test_cuda_kernels_match_plain():
     assert build.LAUNCHES == {"corr": corr_launches, "level0": 0, "level1": 2,
                               "cholinv": 4, "cisweep": 4,
                               "gsq": 0, "sgrid": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 130, 1190])
+def test_cuda_level1_matches_plain(n):
+    """level1 (one warp a pair) against its plain version on the card at a
+    ragged n, with a row that has no alive edge, pairs an early k
+    separates and strongly correlated pairs that no k separates (their
+    walk covers every k)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the level-1 kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n)
+    c = _corr_like(rng, n, 0.1)
+    strong = rng.random((n, n)) < 0.05
+    strong = np.triu(strong, 1) | np.triu(strong, 1).T
+    c = np.where(strong, np.float32(0.9), c).astype(np.float32)
+    adj = np.triu(rng.random((n, n)) < 0.5, 1)
+    adj = adj | adj.T
+    adj[3, :] = adj[:, 3] = False
+    c, adj = torch.tensor(c, device=dev), torch.tensor(adj, device=dev)
+    tau = 0.2
+    build.reset_launches()
+    got = level1.level1_dense_kernel(c, adj, tau)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["level1"] == 1
+    want, lo, hi = (level1.level1_dense_plain(c, adj, t) for t in (tau, tau - BAND, tau + BAND))
+    for k in range(2):
+        _assert_band_only(got[k].cpu(), want[k].cpu(), lo[k].cpu(), hi[k].cpu(), 2)
+    alive = adj & ~torch.eye(n, dtype=torch.bool, device=dev)
+    survivors = alive & ~want[0]
+    assert bool(survivors.any()) and bool((alive & want[0]).any())
+    assert not bool(got[0][3].any()) and bool((got[1][3] == level1.BIG).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau", [0.0258, 0.05, 0.3932])
+def test_cuda_atanh_window(tau):
+    """The level-1 kernel skips atanhf outside [lo, hi]: for every float32
+    within ±2^16 ulp of lo and of hi, of either sign, the windowed decision
+    equals |atanhf ρ| ≤ τ on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    steps = np.arange(-(2**16), 2**16 + 1, dtype=np.int64)
+    vals = [(np.array([edge], dtype=np.float32).view(np.int32).astype(np.int64) + steps)
+            .astype(np.int32).view(np.float32) for edge in level1.atanh_window(tau)]
+    rho = np.concatenate(vals + [-v for v in vals] + [np.array([np.nan], np.float32)])
+    pref, direct = level1.atanh_window_check(torch.tensor(rho, device="cuda"), tau)
+    assert torch.equal(pref, direct)
+    assert 0 < int(direct.sum()) < rho.size
