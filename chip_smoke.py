@@ -17,17 +17,25 @@ Phases, each of which exits non-zero on failure:
    pairs' own walks need, the steps 16×16 tiles of pairs walking k in
    lockstep (the earlier level-1 design) ran, and
    the kernel's 128-k warp steps), cholinv and cisweep on the first ℓ = 2
-   chunk, sgrid's fused entry (the "S-grid" path: C, neighbour lists and
-   the first rank, no gather) on the first level-1 launch of "S-grid",
-   timed beside ``levels.gather_s`` and the gathered entry on the same
-   launch, and sgrid's gathered entry on seeded SPD launches at ℓ = 3 and
-   ℓ = 8. Decisions (sgrid: winners) may differ only in cells whose
+   chunk, the fused S-kernel (skernel: C, neighbour lists and the first
+   rank, one launch a chunk) on the same chunk, its winners bitwise those
+   of cholinv + cisweep on ``levels.gather_s``'s output and timed beside
+   them, the gather and ``plan_sets``, sgrid's fused entry (the "S-grid"
+   path: C, neighbour lists and the first rank, no gather) on the first
+   level-1 launch of "S-grid", timed beside ``levels.gather_s`` and the
+   gathered entry on the same launch, and sgrid's gathered entry on
+   seeded SPD launches at ℓ = 3 and ℓ = 8. Decisions (sgrid, skernel:
+   winners) may differ only in cells whose
    decision moves within τ ± 1e-4 (found by re-running the plain version
    at τ ± 1e-4); cholinv must agree to rtol 1e-5, atol 1e-6; corr to
    atol 2e-6;
 3. Gaussian end to end: ``pc(x)`` on NCI-60 with the launch counts reset
    just before and read just after (every kernel of the path must have
-   launched), a float64 certificate of every recorded sepset, and
+   launched: corr, level0, level1 and skernel once a chunk at ℓ ≥ 2, and
+   neither cholinv nor cisweep), a float64 certificate of every recorded
+   sepset, the same run with the reference's two kernels a chunk
+   (``chunk_fn_s=ops.chunk_s_two_launch``: cholinv and cisweep once a
+   chunk, no skernel) bitwise equal to it, and
    equality with the port's own CPU run on an n = 200 instance fed the
    same C, under "auto" and under "S-grid". A test whose float64
    statistic lies past τ by less than the forward-error bound of its fp32
@@ -40,9 +48,10 @@ Phases, each of which exits non-zero on failure:
    differing edge explained by the band or the fp32 bound; for "E" the
    skeleton only, as its sets rank differently) and certified;
    the paper's §5.6 instance (n = 1000, m = 10 000, density 0.1, α = 0.01,
-   seed 0): sgrid's fused entry on its first ℓ = 2 launch, then "auto" and "S-grid"
-   with per-level chunks and spans, "S-grid" against "auto" and
-   certified;
+   seed 0): sgrid's fused entry on its first ℓ = 2 launch and skernel on
+   "auto"'s first ℓ = 2 chunk, then "auto" (skernel once a chunk at
+   ℓ ≥ 2) and "S-grid" with per-level chunks and spans, "S-grid" against
+   "auto" and certified;
 4. discrete kernel: gsq against its plain version, bitwise, at the level-0
    shape of a bnlearn-PIGS-shaped stand-in (n = 441 ternary variables,
    m = 5000 samples, density 0.0061 ≈ 592 arcs, α = 0.01, seeded
@@ -398,8 +407,41 @@ def sgrid_work(torch, t_p, mask, n_valid=None):
     return cells, tested, ranks, int(found.sum())
 
 
-def sgrid_check(torch, label, got, plain):
-    """Winners of an sgrid entry against its plain version ``plain(d)`` at
+def fused_need(torch, c, compact, rows, s_ids, mask, t_p, cj_copy):
+    """What one fused launch's data needs: the cells up to each slot's
+    winner (its last rank where none) that the mask lets in, the sets
+    those cells use, and the bytes they read, each input element once —
+    the distinct entries of C (C[S,S] and C(i,S) of the needed sets, C_ij
+    of the slots that test, C[j,S] of the cells; ``cj_copy``: C[j,S] read
+    from a transposed copy, a second array), adj at the listed slots, the
+    lists, counts and row ids — and the outputs written once. The binomial
+    table's few entries are left out. Returns (bytes, sets, tested cells)."""
+    n = c.shape[0]
+    n_l, t_len, npr = mask.shape
+    ell = s_ids.shape[-1]
+    local = torch.arange(t_len, device=mask.device)
+    limit = torch.where(t_p < 2**30, t_p, t_len - 1)
+    need = mask.to(torch.bool) & (local[None, :, None] <= limit[:, None, :])
+    staged = need.any(2)
+    s, i = s_ids.long(), rows.long()
+    j = compact.clamp(0, n - 1).long()
+    ss, si = s[staged], i[:, None].expand(n_l, t_len)[staged]
+    r_c, t_c, p_c = need.nonzero(as_tuple=True)
+    from_c = torch.cat([(ss[:, :, None] * n + ss[:, None, :]).reshape(-1),
+                        (si[:, None] * n + ss).reshape(-1),
+                        (i[:, None] * n + j)[need.any(1)]])
+    from_cj = (j[r_c, p_c][:, None] * n + s[r_c, t_c]).reshape(-1)
+    if cj_copy:
+        entries = from_c.unique().numel() + from_cj.unique().numel()
+    else:
+        entries = torch.cat([from_c, from_cj]).unique().numel()
+    bytes_moved = (4 * entries + int((compact >= 0).sum()) + 4 * compact.numel() + 8 * n_l
+                   + 4 * n_l * npr * (ell + 1))
+    return bytes_moved, int(staged.sum()), int(need.sum())
+
+
+def winners_check(torch, label, got, plain):
+    """Winners of an sgrid or skernel entry against its plain version ``plain(d)`` at
     τ + d: equal in every (row, slot) whose winner does not move between
     τ − 1e-4 and τ + 1e-4. Returns (plain winners, # differing, # outside
     the band, # band cells, max |t_k − t_p| outside)."""
@@ -408,7 +450,7 @@ def sgrid_check(torch, label, got, plain):
     diff = (t_k != t_p) | (s_k != s_p).any(-1)
     outside = diff & (t_lo == t_hi)
     err = float(torch.where(outside, (t_k - t_p).abs(), 0).max()) if t_k.numel() else 0.0
-    check(not bool(outside.any()), f"sgrid {label} winners differ outside the τ band")
+    check(not bool(outside.any()), f"{label}: winners differ outside the τ band")
     return t_p, int(diff.sum()), int(outside.sum()), int((t_lo != t_hi).sum()), err
 
 
@@ -421,8 +463,9 @@ def sgrid_phase(torch, label, args, tau):
     m2, ci_s, cj_s, cij, mask, s_ids = args
     n_l, t_len, npr = mask.shape
     ell = m2.shape[-1]
-    t_p, n_diff, n_out, n_band, err = sgrid_check(
-        torch, label, sgrid.sgrid(*args, tau), lambda d: sgrid.sgrid_plain(*args, tau + d))
+    t_p, n_diff, n_out, n_band, err = winners_check(
+        torch, f"sgrid {label}", sgrid.sgrid(*args, tau),
+        lambda d: sgrid.sgrid_plain(*args, tau + d))
     k_ms = cuda_ms(torch, lambda: sgrid.sgrid(*args, tau))
     p_ms = cuda_ms(torch, lambda: sgrid.sgrid_plain(*args, tau), reps=3, warmup=1)
     cells, tested, ranks, found = sgrid_work(torch, t_p, mask)
@@ -444,8 +487,9 @@ def sgrid_fused_phase(torch, label, c, adj, ell, budget, tau):
     unrank or gather on the host) against its plain version (``plan_sets``,
     ``gather_sets``, ``sgrid_plain``); timed beside ``levels.gather_s``
     alone (unrank and gather) and the gathered entry on the same launch.
-    Bound: C, adj, the neighbour lists and counts read once, the outputs
-    written once; the operations of ``sgrid_work``."""
+    Bound: what this launch's data needs (``fused_need``: the entries of
+    C, Cᵀ, adj and the lists the tests read, the outputs; the sets and
+    cells up to each winner)."""
     from repro_torch.core import levels as L
     from repro_torch.core.compact import compact_rows
     from repro_torch.kernels import sgrid
@@ -472,8 +516,8 @@ def sgrid_fused_phase(torch, label, c, adj, ell, budget, tau):
         s, v = L.plan_sets(compact, counts, ranks, ell=ell, n_max=npr_b, n=n)
         return sgrid.sgrid_plain(*L.gather_sets(c, adj, compact, rows, s, v), s, tau)
 
-    t_p, n_diff, n_out, n_band, err = sgrid_check(
-        torch, label, sgrid.sgrid_fused(*fused, tau, c_t=c_t, **kw), plain)
+    t_p, n_diff, n_out, n_band, err = winners_check(
+        torch, f"sgrid {label}", sgrid.sgrid_fused(*fused, tau, c_t=c_t, **kw), plain)
     k_ms = cuda_ms(torch, lambda: sgrid.sgrid_fused(*fused, tau, c_t=c_t, **kw))
     p_ms = cuda_ms(torch, plain_path, reps=3, warmup=1)
     g_ms = cuda_ms(torch, lambda: L.gather_s(c, adj, compact, counts, rows, ranks, ell=ell,
@@ -482,8 +526,9 @@ def sgrid_fused_phase(torch, label, c, adj, ell, budget, tau):
                                                  n=n))
     gk_ms = cuda_ms(torch, lambda: sgrid.sgrid(*gathered, s_ids, tau))
     t_ms = cuda_ms(torch, lambda: c.T.contiguous())
-    cells, tested, inverses, found = sgrid_work(torch, t_p, gathered[-1], valid.sum(1))
-    bytes_moved = n * n * 5 + compact.numel() * 4 + n * 4 + n * npr_b * (ell + 1) * 4
+    cells, _, _, found = sgrid_work(torch, t_p, gathered[-1], valid.sum(1))
+    bytes_moved, inverses, tested = fused_need(torch, c, compact, rows, s_ids, gathered[-1], t_p,
+                                               cj_copy=True)
     b_ms, b_by = bound(bytes_moved, inverses * cholinv_ops(ell) + tested * cisweep_ops(ell))
     print(f"kernel sgrid (fused) {label}: n_l={n} T={n_chunk} n′={npr_b} ℓ={ell}: {found} of "
           f"{n * npr_b} slots separated; winners differ in {n_diff} cells ({n_out} outside "
@@ -492,6 +537,70 @@ def sgrid_fused_phase(torch, label, c, adj, ell, budget, tau):
           f"cells, {inverses} set inverses); on the same launch: levels.gather_s {g_ms:.4f} ms "
           f"(plan_sets alone {plan_ms:.4f}), the gathered entry {gk_ms:.4f} ms, Cᵀ copy "
           f"{t_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def skernel_phase(torch, label, c, adj, tau):
+    """The first ℓ = 2 chunk of a level as "auto" plans it (``plan_level``
+    at the default budget) through the fused S-kernel: its winners bitwise
+    those of cholinv + cisweep on ``gather_s``'s output and ``_winners``
+    (``skernel_two_launch``, on the same card), and within the τ band of
+    its plain version (``plan_sets``, ``gather_sets``, the plain cholinv
+    and cisweep, ``_winners``); timed beside ``levels.gather_s``,
+    ``plan_sets`` alone, cholinv, cisweep and the whole two-launch chunk.
+    Bound: what this chunk's data needs (``fused_need``: the entries of C,
+    adj and the lists the tests read, the outputs; the sets and cells up
+    to each winner)."""
+    from repro_torch.core import levels as L
+    from repro_torch.core.compact import compact_rows
+    from repro_torch.kernels import cholinv, cisweep, skernel
+
+    ell = 2
+    n = c.shape[0]
+    npr = int(adj.sum(1).max())
+    npr_b, n_chunk, total = L.plan_level(npr, ell, n, n_cols=n)
+    compact, counts = compact_rows(adj, n_prime=npr_b)
+    rows = torch.arange(n, dtype=torch.int32, device=c.device)
+    ranks = torch.arange(n_chunk, dtype=torch.int32, device=c.device)
+    args = (c, adj, compact, counts, rows, torch.zeros((), dtype=torch.int32, device=c.device))
+    kw = dict(ell=ell, n_chunk=n_chunk, n_max=npr_b)
+    got = skernel.skernel_fused(*args, tau, **kw)
+    two = skernel.skernel_two_launch(*args, tau, **kw)
+    bitwise = torch.equal(got[0], two[0]) and torch.equal(got[1], two[1])
+    t_p, n_diff, n_out, n_band, err = winners_check(
+        torch, f"skernel {label}", got, lambda d: skernel.skernel_plain(*args, tau + d, **kw))
+    check(bitwise, f"skernel {label}: winners are not bitwise those of cholinv + cisweep")
+    s_ids, valid = L.plan_sets(compact, counts, ranks, ell=ell, n_max=npr_b, n=n)
+    m2, ci_s, cj_s, cij, mask = L.gather_sets(c, adj, compact, rows, s_ids, valid)
+    b = n * n_chunk
+    m2, ci_s = m2.reshape(b, ell, ell).contiguous(), ci_s.reshape(b, ell).contiguous()
+    cj_s, cij = cj_s.reshape(b, npr_b, ell).contiguous(), cij.reshape(b, npr_b).contiguous()
+    mask_b = mask.reshape(b, npr_b).contiguous()
+    g, u, var = cholinv.cholinv(m2, ci_s)
+    k_ms = cuda_ms(torch, lambda: skernel.skernel_fused(*args, tau, **kw))
+    p_ms = cuda_ms(torch, lambda: skernel.skernel_plain(*args, tau, **kw), reps=3, warmup=1)
+    two_ms = cuda_ms(torch, lambda: skernel.skernel_two_launch(*args, tau, **kw), reps=5)
+    g_ms = cuda_ms(torch, lambda: L.gather_s(c, adj, compact, counts, rows, ranks, ell=ell,
+                                             n_max=npr_b), reps=5)
+    plan_ms = cuda_ms(torch, lambda: L.plan_sets(compact, counts, ranks, ell=ell, n_max=npr_b,
+                                                 n=n), reps=5)
+    ci_ms = cuda_ms(torch, lambda: cholinv.cholinv(m2, ci_s))
+    sw_ms = cuda_ms(torch, lambda: cisweep.cisweep(g, u, var, cj_s, cij, mask_b, tau))
+    cells, _, _, found = sgrid_work(torch, t_p, mask, valid.sum(1))
+    bytes_moved, inverses, tested = fused_need(torch, c, compact, rows, s_ids, mask, t_p,
+                                               cj_copy=False)
+    b_ms, b_by = bound(bytes_moved, inverses * cholinv_ops(ell) + tested * cisweep_ops(ell))
+    print(f"kernel skernel {label}: n_l={n} T={n_chunk} n′={npr_b} ℓ={ell} ({total} ranks, "
+          f"{-(-total // n_chunk)} chunks): {found} of {n * npr_b} slots separated; bitwise equal "
+          f"to cholinv + cisweep on gather_s {bitwise}; against the plain version winners differ "
+          f"in {n_diff} cells ({n_out} outside the τ band, {n_band} band cells); kernel "
+          f"{k_ms:.4f} ms plain {p_ms:.4f} ms bound {b_ms:.5f} ms ({b_by}: {bytes_moved} bytes, "
+          f"{tested} tested of {cells} visited cells, {inverses} set inverses, "
+          f"{int(valid.sum())} valid sets of {b}, {int(mask.sum())} masked-in of {b * npr_b} "
+          f"cells); on the same chunk: the two-launch path {two_ms:.4f} ms, levels.gather_s "
+          f"{g_ms:.4f} ms (plan_sets alone {plan_ms:.4f}), cholinv {ci_ms:.4f} ms, cisweep "
+          f"{sw_ms:.4f} ms")
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
 
@@ -527,7 +636,7 @@ def nci60_engines(torch, x_np, auto, c64, launches, dev):
     from repro_torch.kernels import build
 
     cfg = NCI60
-    chunked = ("cholinv", "cisweep", "level1")
+    chunked = ("cholinv", "cisweep", "level1", "skernel")
     for label, kw in ENGINE_RUNS:
         torch.cuda.synchronize()
         build.reset_launches()
@@ -584,6 +693,7 @@ def section56(torch, dev):
     print(f"§5.6 instance n={n} m={m} density {cfg['density']}: level 0 keeps "
           f"{int(adj0.sum()) // 2} edges, level 1 {int(adj1.sum()) // 2}")
     sgrid_fused_phase(torch, "§5.6 first ℓ=2 launch", c, adj1, 2, L.GRID_CELL_BUDGET, tau[2])
+    skernel_phase(torch, "§5.6 first ℓ=2 chunk", c, adj1, tau[2])
 
     runs, c64 = {}, c.double().cpu().numpy()
     for label, run_kw in (("auto", {}), ("S-grid", dict(engine="S-grid"))):
@@ -597,7 +707,13 @@ def section56(torch, dev):
               f"{json.dumps(build.LAUNCHES)}, total span {run.timings_s['total']:.4f} s")
         level_lines(run)
         runs[label] = run
-        if run_kw:
+        if not run_kw:
+            chunks = sum(st["chunks"] for st in run.level_stats if st["level"] >= 2)
+            check(build.LAUNCHES["skernel"] == chunks > 0 and not build.LAUNCHES["cholinv"]
+                  and not build.LAUNCHES["cisweep"],
+                  f"§5.6 auto launched skernel {build.LAUNCHES['skernel']} times for {chunks} "
+                  f"chunks at ℓ ≥ 2, or cholinv or cisweep: {build.LAUNCHES}")
+        else:
             chunks = sum(st["chunks"] for st in run.level_stats)
             check(build.LAUNCHES["sgrid"] == chunks > 0,
                   f"§5.6 S-grid launched sgrid {build.LAUNCHES['sgrid']} times for {chunks}")
@@ -652,6 +768,8 @@ def main() -> int:
                "cholinv": ("src/repro_torch/csrc/cholinv.cu", "src/repro/kernels/cholinv.py:81"),
                "cisweep": ("src/repro_torch/csrc/cisweep.cu", "src/repro/kernels/cisweep.py:50"),
                "sgrid": ("src/repro_torch/csrc/sgrid.cu", "src/repro/kernels/sgrid.py:170"),
+               "skernel": ("src/repro_torch/csrc/skernel.cu", "src/repro/kernels/cholinv.py:81, "
+                           "src/repro/kernels/cisweep.py:50"),
                "gsq": ("src/repro_torch/csrc/gsq.cu", "src/repro/kernels/gsq.py:129")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
                     **rows[name]) for name, (src, rep) in sources.items()]
@@ -845,6 +963,7 @@ def gaussian(torch, rows, launches):
     check(o_sw == 0, "cisweep decisions differ outside the τ band")
     rows["cisweep"] = dict(max_abs_err=1.0 if o_sw else 0.0, ms=k_ms, plain_ms=p_ms,
                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    rows["skernel"] = skernel_phase(torch, "NCI-60 first ℓ=2 chunk", c, adj1, tau[2])
 
     # sgrid at the first level-1 launch of "S-grid" (the fused entry), and
     # the gathered entry on seeded SPD launches at ℓ = 3 and ℓ = 8
@@ -866,8 +985,9 @@ def gaussian(torch, rows, launches):
     run = pc(x_np, alpha=alpha)
     torch.cuda.synchronize()
     e2e_s = time.monotonic() - t0
-    path = ("corr", "level0", "level1", "cholinv", "cisweep")
+    path = ("corr", "level0", "level1", "skernel")
     launches.update({k: build.LAUNCHES[k] for k in path})
+    chunks = sum(st["chunks"] for st in run.level_stats if st["level"] >= 2)
     check((run.adj == first.adj).all() and (run.sepsets == first.sepsets).all(),
           "two runs of pc(x) on the card disagree")
     print(f"e2e pc(x) NCI-60 n={n} m={m}: {e2e_s:.3f} s (first run {first_s:.3f} s), "
@@ -879,6 +999,10 @@ def gaussian(torch, rows, launches):
     print(f"  launches {json.dumps(build.LAUNCHES)}")
     check(all(launches[k] > 0 for k in path),
           f"a kernel of the Gaussian path never launched: {build.LAUNCHES}")
+    check(launches["skernel"] == chunks and not build.LAUNCHES["cholinv"]
+          and not build.LAUNCHES["cisweep"],
+          f"auto launched skernel {launches['skernel']} times for {chunks} chunks at ℓ ≥ 2, or "
+          f"cholinv or cisweep: {build.LAUNCHES}")
     c64 = ops.correlation(x).double().cpu().numpy()
     for ell, cnt in certify(run, c64, m, alpha, threshold).items():
         print(f"  certificate ℓ={ell}: {cnt['checked']} recorded sepsets pass in float64, "
@@ -906,6 +1030,25 @@ def gaussian(torch, rows, launches):
           f"τ band), cpdag equal {same_cpdag}, {gpu.levels_run} levels")
     check(unexplained == 0, "S-grid CUDA and CPU runs differ outside the τ band")
     check(same_cpdag or n_diff > 0, "CPDAGs differ although skeleton and sepsets agree")
+
+    # the same path with the reference's two kernels a chunk: the fused
+    # kernel's winners are bitwise theirs, so the runs are bitwise equal
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.monotonic()
+    two = pc(x_np, alpha=alpha, chunk_fn_s=ops.chunk_s_two_launch)
+    torch.cuda.synchronize()
+    two_s = time.monotonic() - t0
+    launches.update({k: build.LAUNCHES[k] for k in ("cholinv", "cisweep")})
+    print(f"e2e pc(x, chunk_fn_s=ops.chunk_s_two_launch) NCI-60: {two_s:.3f} s, launches "
+          f"{json.dumps(build.LAUNCHES)}")
+    level_lines(two)
+    check(launches["cholinv"] == launches["cisweep"] == chunks > 0
+          and not build.LAUNCHES["skernel"],
+          f"the two-launch run launched cholinv/cisweep other than once a chunk: "
+          f"{build.LAUNCHES}")
+    check((two.adj == run.adj).all() and (two.sepsets == run.sepsets).all(),
+          "the fused and the two-launch S-kernel runs differ")
 
     nci60_engines(torch, x_np, run, c64, launches, dev)
 

@@ -6,8 +6,9 @@
               tests ahead of their commits.
   "E"         cuPC-E as PyTorch ops (``levels.chunk_e``): one independent
               test per (row, slot, rank), no shared inverse.
-  "S-kernel"  any ℓ ≥ 1: chunked cuPC-S through cholinv + cisweep
-              (``ops.chunk_s_kernel``).
+  "S-kernel"  any ℓ ≥ 1: chunked cuPC-S with cholinv's and cisweep's
+              arithmetic (``ops.chunk_s_kernel``): on the card one fused
+              skernel launch a chunk, which unranks its sets and reads C.
   "S-grid"    any ℓ ≥ 1: grid-resident cuPC-S, each launch of ranks one
               sgrid kernel that sweeps them all and keeps only the winners
               (``ops.chunk_s_grid``), planned at ``levels.GRID_CELL_BUDGET``

@@ -11,7 +11,7 @@ route).
 Host loop over levels (paper Algorithm 2). Gaussian: level 0 on the
 level-0 kernel, then each level on the engine ``engines.resolve`` names;
 "auto" runs ℓ = 1 on the dense level-1 kernel and ℓ ≥ 2 on chunked
-cuPC-S (cholinv + cisweep). Discrete: every level on the G² worklist
+cuPC-S (the fused skernel, one launch a chunk). Discrete: every level on the G² worklist
 through the gsq kernel. Then orientation to the CPDAG. Results come back
 as numpy arrays in the reference's dtypes.
 """

@@ -16,14 +16,11 @@
 // fetches is used and no transpose pass is needed. There is no padded
 // tail; threads past B return.
 //
-// The order of operations mirrors _cholinv_kernel step for step
-// (jit_eff = jitter·(scale·(1/ℓ)), eps = 1e-20, the Cholesky, forward
-// substitution and Gram loop orders). Every product that feeds a running
-// sum is one fused multiply-add (__fmaf_rn), as XLA contracts the
-// reference on the CPU, and every other step uses the _rn intrinsics so
-// nvcc contracts nothing else: each value rounds as in the plain PyTorch
-// version, which emulates the same FMAs in float64.
+// The per-set arithmetic is cholinv_set (cholinv.cuh), which the fused
+// S-kernel (skernel.cu) shares: see there for its order of operations.
 #include <cuda_runtime.h>
+
+#include "cholinv.cuh"
 
 namespace {
 
@@ -34,81 +31,20 @@ cholinv_kernel(const float* __restrict__ m2, const float* __restrict__ ci,
                long long b, float jitter, float inv_l) {
   const long long s = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (s >= b) return;
-  const float* a_in = m2 + s * L * L;
-
-  float a[L][L];
-#pragma unroll
-  for (int i = 0; i < L; ++i)
-#pragma unroll
-    for (int j = 0; j < L; ++j) a[i][j] = a_in[i * L + j];
-
-  float scale = a[0][0];
-#pragma unroll
-  for (int i = 1; i < L; ++i) scale = __fadd_rn(scale, a[i][i]);
-  const float jit_eff = __fmul_rn(jitter, __fmul_rn(scale, inv_l));
-#pragma unroll
-  for (int i = 0; i < L; ++i) a[i][i] = __fadd_rn(a[i][i], jit_eff);
-  const float eps = 1e-20f;
-
-  // Cholesky: a = L Lᵀ
-  float l[L][L];
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    float acc = a[j][j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) acc = __fmaf_rn(-l[j][k], l[j][k], acc);
-    l[j][j] = __fsqrt_rn(fmaxf(acc, eps));
-    const float inv_ljj = __fdiv_rn(1.f, l[j][j]);
-#pragma unroll
-    for (int i = j + 1; i < L; ++i) {
-      acc = a[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) acc = __fmaf_rn(-l[i][k], l[j][k], acc);
-      l[i][j] = __fmul_rn(acc, inv_ljj);
-    }
-  }
-
-  // M = L⁻¹ by forward substitution
-  float minv[L][L];
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    minv[j][j] = __fdiv_rn(1.f, l[j][j]);
-#pragma unroll
-    for (int i = j + 1; i < L; ++i) {
-      float acc = __fmul_rn(l[i][j], minv[j][j]);
-#pragma unroll
-      for (int k = j + 1; k < i; ++k) acc = __fmaf_rn(l[i][k], minv[k][j], acc);
-      minv[i][j] = __fdiv_rn(-acc, l[i][i]);
-    }
-  }
-
-  // G = MᵀM (upper triangle, mirrored) and u = G·C(i,S)
-  float cv[L];
-#pragma unroll
-  for (int i = 0; i < L; ++i) cv[i] = ci[s * L + i];
-  float uu[L];
-#pragma unroll
-  for (int i = 0; i < L; ++i) uu[i] = 0.f;
-  float* g_out = g + s * L * L;
+  float a[L][L], cv[L];
 #pragma unroll
   for (int i = 0; i < L; ++i) {
 #pragma unroll
-    for (int j = i; j < L; ++j) {
-      float acc = 0.f;
-#pragma unroll
-      for (int k = j; k < L; ++k) acc = __fmaf_rn(minv[k][i], minv[k][j], acc);
-      g_out[i * L + j] = acc;
-      g_out[j * L + i] = acc;
-      uu[i] = __fmaf_rn(acc, cv[j], uu[i]);
-      if (i != j) uu[j] = __fmaf_rn(acc, cv[i], uu[j]);
-    }
+    for (int j = 0; j < L; ++j) a[i][j] = m2[s * L * L + i * L + j];
+    cv[i] = ci[s * L + i];
   }
-
-  float v = 1.f;
+  float gg[L][L], uu[L], v;
+  cholinv_set<L>(a, cv, jitter, inv_l, gg, uu, v);
 #pragma unroll
   for (int i = 0; i < L; ++i) {
+#pragma unroll
+    for (int j = 0; j < L; ++j) g[s * L * L + i * L + j] = gg[i][j];
     u[s * L + i] = uu[i];
-    v = __fmaf_rn(-cv[i], uu[i], v);
   }
   var[s] = v;
 }

@@ -19,12 +19,12 @@
 // block into shared memory with coalesced loads. A masked cell writes 0
 // and costs no atanhf.
 //
-// The order of operations mirrors _cisweep_kernel, and the _rn
-// intrinsics keep nvcc from contracting products into FMAs, so each step
-// rounds as in the plain PyTorch version; rsqrtf and atanhf differ from
-// the CPU's by a few ulps.
+// The per-cell arithmetic is cisweep_cell (cisweep.cuh), which the fused
+// S-kernel (skernel.cu) shares.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cisweep.cuh"
 
 namespace {
 
@@ -59,27 +59,11 @@ cisweep_kernel(const float* __restrict__ g, const float* __restrict__ u,
     return;
   }
 
-  const float* gg = g_s + ls * L * L;
-  const float* uu = u_s + ls * L;
   float w[L];
 #pragma unroll
   for (int i = 0; i < L; ++i) w[i] = cjs[cell * L + i];
-
-  float num = cij[cell];
-  float var_j = 1.f;
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    num = __fsub_rn(num, __fmul_rn(w[i], uu[i]));
-    var_j = __fsub_rn(var_j, __fmul_rn(__fmul_rn(w[i], w[i]), gg[i * L + i]));
-#pragma unroll
-    for (int j = i + 1; j < L; ++j) {
-      var_j = __fsub_rn(var_j,
-                        __fmul_rn(__fmul_rn(__fmul_rn(2.f, w[i]), w[j]), gg[i * L + j]));
-    }
-  }
-  float rho = __fmul_rn(num, rsqrtf(fmaxf(__fmul_rn(v_s[ls], var_j), 1e-20f)));
-  rho = fminf(fmaxf(rho, -0.9999999f), 0.9999999f);
-  out[cell] = fabsf(atanhf(rho)) <= tau ? 1 : 0;
+  out[cell] =
+      cisweep_cell<L>(w, cij[cell], g_s + ls * L * L, u_s + ls * L, v_s[ls], tau) ? 1 : 0;
 }
 
 template <int L>

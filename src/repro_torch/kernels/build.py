@@ -1,7 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
 Every ``csrc/*.cu`` file exposes plain C functions (no PyTorch headers;
-``csrc/*.cuh`` holds device code two of them share),
+``csrc/*.cuh`` holds device code several of them share: the atanh window,
+cholinv's and cisweep's per-set and per-cell steps, the unrank walk, the
+sweep core of sgrid and skernel),
 so ``nvcc`` compiles each in seconds. At first use :func:`library` starts
 one ``nvcc -c`` per source, all at once, links the objects into one
 shared library under ``src/repro_torch/_build/`` (listed in
@@ -12,7 +14,9 @@ a finished build is reused by later processes.
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``, and deliberately no
 ``--use_fast_math``: the level-1, cisweep and sgrid decisions compare atanhf
 against τ, and the default ``-prec-div``/``-prec-sqrt`` and no-FTZ
-settings keep them as close to the reference as the card allows.
+settings keep them as close to the reference as the card allows (and the
+fused S-kernel's bitwise equal to cholinv's and cisweep's, whose device
+functions it calls).
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made (corr's
 split-K path is two: the splits and their reduction; sgrid's two entries,
@@ -58,11 +62,13 @@ SIGNATURES = {
                     _P),
     "repro_sgrid_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                           _F, _F, _F, _F, _P),
+    "repro_skernel_fused": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _F, _F, _P),
 }
 
 #: kernel name → launches made through its wrapper (see module docstring)
 LAUNCHES: dict[str, int] = {"corr": 0, "level0": 0, "level1": 0, "cholinv": 0, "cisweep": 0,
-                            "gsq": 0, "sgrid": 0}
+                            "gsq": 0, "sgrid": 0, "skernel": 0}
 
 
 def reset_launches() -> None:

@@ -1,13 +1,16 @@
 """Public wrappers around the hand kernels, with the contracts of
 ``src/repro/kernels/ops.py``: ``correlation``, ``level0``,
 ``level1_dense``, ``ci_shared``, ``chunk_s_kernel``, ``ci_shared_grid``,
-``chunk_s_grid`` and ``gsq``.
+``chunk_s_grid`` and ``gsq``; and ``chunk_s_two_launch``, the
+reference's two-kernel chunk.
 
 Each wrapper runs its CUDA kernel for CUDA tensors and the kernel's plain
 PyTorch version for CPU tensors. Unlike the reference, nothing is padded
 to TPU tiles: the kernels mask their own ragged edges.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -18,6 +21,7 @@ from . import gsq as _gsq
 from . import level0 as _level0
 from . import level1 as _level1
 from . import sgrid as _sgrid
+from . import skernel as _skernel
 
 
 def standardize(x: torch.Tensor) -> torch.Tensor:
@@ -72,26 +76,6 @@ def ci_shared(m2, ci_s, cj_s, cij, mask, tau: float, *, ell: int) -> torch.Tenso
                             mask.contiguous(), tau)
 
 
-def chunk_s_kernel(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max):
-    """Same contract as the reference ``chunk_s_kernel``: combo-ranks
-    [t0, t0 + n_chunk) of every row, gathered by ``levels.gather_s``,
-    tested by cholinv + cisweep, committed by ``levels._commit``; returns
-    the updated (adj, sep)."""
-    from repro_torch.core import levels as L
-
-    n, npr = compact.shape
-    rows = torch.arange(n, dtype=torch.int32, device=c.device)
-    ranks = t0 + torch.arange(n_chunk, dtype=t0.dtype, device=c.device)
-    m2, ci_s, cj_s, cij, mask, s_ids = L.gather_s(
-        c, adj, compact, counts, rows, ranks, ell=ell, n_max=n_max)
-    bsz = n * n_chunk
-    sep_found = ci_shared(
-        m2.reshape(bsz, ell, ell), ci_s.reshape(bsz, ell), cj_s.reshape(bsz, npr, ell),
-        cij.reshape(bsz, npr), mask.reshape(bsz, npr), tau, ell=ell,
-    ).reshape(n, n_chunk, npr)
-    return L._commit(adj, sep, compact, sep_found, ranks, s_ids, ell)
-
-
 def ci_shared_grid(m2, ci_s, cj_s, cij, mask, s_ids, tau: float, *, ell: int):
     """Grid-resident cuPC-S over one gathered launch (the sgrid kernel's
     gathered entry; the "S-grid" engine takes the fused one), batch-first: m2
@@ -114,26 +98,45 @@ def _grid_winners(t_loc, s_win, t0):
     return t_win, found, s_win
 
 
-def chunk_s_grid_tests(c, adj, compact, counts, rows, t0, tau, *, ell, n_chunk, n_max,
-                       c_t=None):
-    """The tests half of the grid engine for a block of rows: ranks
-    [t0, t0 + n_chunk) swept in one fused sgrid launch that unranks the
-    sets and reads C itself (no gather; ``c_t``, Cᵀ contiguous, is made per
-    call when not given). Returns (t_win (n_l, n′), removed_slot,
-    s_win (n_l, n′, ℓ))."""
-    t_loc, s_win = _sgrid.sgrid_fused(c, adj, compact, counts, rows, t0, tau, ell=ell,
-                                      n_chunk=n_chunk, n_max=n_max, c_t=c_t)
-    return _grid_winners(t_loc, s_win, t0)
-
-
-def chunk_s_grid(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max, c_t=None):
-    """Same contract as ``levels.chunk_s``, with ranks [t0, t0 + n_chunk)
-    in one sgrid launch and its commit; returns the updated (adj, sep).
-    ``engines.run_level`` hands over ``c_t`` (Cᵀ) made once a level."""
+def _commit_winners(winners_fn, c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max):
+    """One chunk of every row through ``winners_fn`` (an sgrid or skernel
+    entry: launch-local winners) and the engines' commit; returns the
+    updated (adj, sep)."""
     from repro_torch.core import levels as L
 
     n = compact.shape[0]
     rows = torch.arange(n, dtype=torch.int32, device=c.device)
-    t_win, removed_slot, s_win = chunk_s_grid_tests(
-        c, adj, compact, counts, rows, t0, tau, ell=ell, n_chunk=n_chunk, n_max=n_max, c_t=c_t)
+    t_loc, s_win = winners_fn(c, adj, compact, counts, rows, t0, tau, ell=ell, n_chunk=n_chunk,
+                              n_max=n_max)
+    t_win, removed_slot, s_win = _grid_winners(t_loc, s_win, t0)
     return L._global_commit(adj, sep, compact, rows, t_win, removed_slot, s_win, ell)
+
+
+def chunk_s_grid(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max, c_t=None):
+    """Same contract as ``levels.chunk_s``, with ranks [t0, t0 + n_chunk)
+    in one fused sgrid launch, which unranks the sets and reads C itself
+    (no gather), and its commit; returns the updated (adj, sep).
+    ``engines.run_level`` hands over ``c_t`` (Cᵀ) made once a level; it
+    is made per call when not given."""
+    return _commit_winners(functools.partial(_sgrid.sgrid_fused, c_t=c_t), c, adj, sep, compact,
+                           counts, t0, tau, ell=ell, n_chunk=n_chunk, n_max=n_max)
+
+
+def chunk_s_kernel(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max):
+    """Same contract as the reference ``chunk_s_kernel``: combo-ranks
+    [t0, t0 + n_chunk) of every row, tested by cholinv's and cisweep's
+    arithmetic and committed; returns the updated (adj, sep). On the card
+    one fused skernel launch unranks, inverts, sweeps and keeps the
+    winners (no ``gather_s``); on the CPU its plain version gathers and
+    runs the plain cholinv and cisweep."""
+    return _commit_winners(_skernel.skernel_fused, c, adj, sep, compact, counts, t0, tau,
+                           ell=ell, n_chunk=n_chunk, n_max=n_max)
+
+
+def chunk_s_two_launch(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max):
+    """``chunk_s_kernel`` as the reference runs it: ``levels.gather_s``,
+    the gathered cholinv and cisweep kernels (two launches a chunk) and
+    ``levels._winners``; the same (adj, sep). A ``chunk_fn_s`` hook for
+    comparing the fused kernel with the two kernels it replaces."""
+    return _commit_winners(_skernel.skernel_two_launch, c, adj, sep, compact, counts, t0, tau,
+                           ell=ell, n_chunk=n_chunk, n_max=n_max)

@@ -251,7 +251,7 @@ def test_cuda_kernels_match_plain():
     corr_launches = sum(2 * (1 if m <= corr.DIRECT_MAX_M else 2) for m, _ in corr_shapes)
     assert build.LAUNCHES == {"corr": corr_launches, "level0": 0, "level1": 2,
                               "cholinv": 4, "cisweep": 4,
-                              "gsq": 0, "sgrid": 0}
+                              "gsq": 0, "sgrid": 0, "skernel": 0}
 
 
 @pytest.mark.cuda
