@@ -13,8 +13,12 @@ Phases, each of which exits non-zero on failure:
    §5.6 shape m = 10000, n = 1000 and a ragged m = 1003, n = 517; each
    bitwise symmetric and bitwise equal across two calls, and timed in
    turns with ``torch.matmul``, also inside a CUDA graph), level0 on C
-   (exact), level1 on the level-0 adjacency (with the 32-k steps its
-   pairs' own walks need, the steps 16×16 tiles of pairs walking k in
+   (both entries exact: the adjacency alone against ``levels.level0``,
+   the fused level-0 span (adjacency, level-0 sepsets, max degree; the
+   driver's one level-0 launch) against ``levels.level0_span``, here and
+   at §5.6's C; timed, with and without a CUDA graph, beside the seven-op
+   span it replaced), level1 on the level-0 adjacency (with the 32-k
+   steps its pairs' own walks need, the steps 16×16 tiles of pairs walking k in
    lockstep (the earlier level-1 design) ran, and
    the kernel's 128-k warp steps), cholinv and cisweep on the first ℓ = 2
    chunk, the fused S-kernel (skernel: C, neighbour lists and the first
@@ -31,9 +35,10 @@ Phases, each of which exits non-zero on failure:
    atol 2e-6;
 3. Gaussian end to end: ``pc(x)`` on NCI-60 with the launch counts reset
    just before and read just after (every kernel of the path must have
-   launched: corr, level0, level1 and skernel once a chunk at ℓ ≥ 2, and
-   neither cholinv nor cisweep), a float64 certificate of every recorded
-   sepset, the same run with the reference's two kernels a chunk
+   launched: corr, level0 once, level1 and skernel once a chunk at ℓ ≥ 2,
+   and neither cholinv nor cisweep), its level-0 span's seconds, a
+   float64 certificate of every recorded sepset, the same run with the
+   reference's two kernels a chunk
    (``chunk_fn_s=ops.chunk_s_two_launch``: cholinv and cisweep once a
    chunk, no skernel) bitwise equal to it, and
    equality with the port's own CPU run on an n = 200 instance fed the
@@ -146,6 +151,57 @@ def graph_ms(torch, fn, reps=20):
         for _ in range(reps):
             fn()
     return cuda_ms(torch, graph.replay, reps=5, warmup=1) / reps
+
+
+def level0_old_span(torch, level0, c, tau, depth):
+    """The level-0 span before it was fused: the adjacency kernel and six
+    PyTorch ops (the sepset fill, a where, a cast, the slot-0 write, the
+    row sums and their max), without the driver's read of the max."""
+    adj = level0.level0_kernel(c, tau)
+    n = c.shape[0]
+    sep = torch.full((n, n, depth), -1, dtype=torch.int32, device=c.device)
+    sep[:, :, 0] = torch.where(adj, -1, -2).to(torch.int32)
+    return adj, sep, adj.sum(dim=1, dtype=torch.int32).max()
+
+
+def level0_phase(torch, label, c, tau, depth=8):
+    """Both level0 entries exactly equal to their plain versions on C, and
+    the old seven-op span equal to the fused one; the adjacency entry, the
+    fused entry, the old span and the plain span timed with ``cuda_ms``
+    and ``graph_ms``, beside the bounds 5·n² and (5 + 4·depth)·n² bytes.
+    Returns the kernel record's row: the fused entry, graph times."""
+    from repro_torch.core import levels as L
+    from repro_torch.kernels import level0
+
+    n = c.shape[0]
+    adj_p = L.level0(c, tau)
+    n_diff = int((level0.level0_kernel(c, tau) != adj_p).sum())
+    got = level0.level0_span(c, tau, depth)
+    want = L.level0_span(c, tau, depth)
+    old = level0_old_span(torch, level0, c, tau, depth)
+    err = max(float((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0.0
+              for a, b in zip(got, want))
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+    same_old = all(torch.equal(a, b) for a, b in zip(old, want))
+    fns = (("adjacency", lambda: level0.level0_kernel(c, tau)),
+           ("fused", lambda: level0.level0_span(c, tau, depth)),
+           ("old span", lambda: level0_old_span(torch, level0, c, tau, depth)),
+           ("plain span", lambda: L.level0_span(c, tau, depth)))
+    times = {name: (cuda_ms(torch, fn), graph_ms(torch, fn)) for name, fn in fns}
+    b_adj, by_adj = bound(5 * n * n, LEVEL0_OPS_PER_CELL * n * n)
+    b_span, by_span = bound((5 + 4 * depth) * n * n, LEVEL0_OPS_PER_CELL * n * n)
+    print(f"kernel level0 {label} n={n}: {int(adj_p.sum()) // 2} edges, max degree "
+          f"{int(want[2])}; adjacency entry differs from levels.level0 in {n_diff} cells, "
+          f"fused entry (depth {depth}) max_abs_err {err:g} against levels.level0_span "
+          f"(exact required; the old seven-op span equal: {same_old}); ms (events, graph): "
+          + ", ".join(f"{k} {a:.5f} {g:.5f}" for k, (a, g) in times.items())
+          + f"; bound adjacency {b_adj:.5f} ({by_adj}, 5·n² bytes), span {b_span:.5f} "
+          f"({by_span}, {5 + 4 * depth}·n² bytes)")
+    check(n_diff == 0, f"level0 {label} differs from its plain version in {n_diff} cells")
+    check(same and err == 0.0, f"level0_span {label} differs from levels.level0_span")
+    check(same_old, f"level0_span {label} differs from the seven-op span")
+    return dict(max_abs_err=err, ms=times["fused"][1], plain_ms=times["plain span"][1],
+                bound_ms=b_span, bound_by=by_span, library_ms=None)
 
 
 def bound(bytes_moved, ops):
@@ -686,9 +742,8 @@ def section56(torch, dev):
     x_np, _ = sample_gaussian_dag(n, m, cfg["density"], seed=cfg["seed"])
     c = ops.correlation(torch.tensor(x_np, dtype=torch.float32, device=dev))
     tau = [threshold(m, ell, alpha) for ell in range(3)]
-    adj0 = ops.level0(c, tau[0])
-    sep0 = torch.full((n, n, 8), -1, dtype=torch.int32, device=dev)
-    sep0[:, :, 0] = torch.where(adj0, -1, -2).to(torch.int32)
+    level0_phase(torch, "§5.6", c, tau[0])
+    adj0, sep0, _ = ops.level0_span(c, tau[0], 8)
     adj1, _, _ = engines.run_level(c, adj0, sep0, 1, tau[1])
     print(f"§5.6 instance n={n} m={m} density {cfg['density']}: level 0 keeps "
           f"{int(adj0.sum()) // 2} edges, level 1 {int(adj1.sum()) // 2}")
@@ -704,7 +759,10 @@ def section56(torch, dev):
         secs = time.monotonic() - t0
         print(f"e2e pc(x{', engine=' + repr(label) if run_kw else ''}) §5.6: {secs:.3f} s, "
               f"{run.levels_run} levels, {int(run.adj.sum()) // 2} edges, launches "
-              f"{json.dumps(build.LAUNCHES)}, total span {run.timings_s['total']:.4f} s")
+              f"{json.dumps(build.LAUNCHES)}, total span {run.timings_s['total']:.4f} s, "
+              f"level0 span {run.timings_s['level0']:.6f} s")
+        check(build.LAUNCHES["level0"] == 1, f"§5.6 {label} launched level0 "
+              f"{build.LAUNCHES['level0']} times, not once")
         level_lines(run)
         runs[label] = run
         if not run_kw:
@@ -792,7 +850,7 @@ def gaussian(torch, rows, launches):
     from repro_torch.core.cit import threshold
     from repro_torch.core.compact import compact_rows
     from repro_torch.data.synthetic_dag import sample_gaussian_dag
-    from repro_torch.kernels import build, cholinv, cisweep, corr, level0, level1, ops
+    from repro_torch.kernels import build, cholinv, cisweep, corr, level1, ops
 
     dev = torch.device("cuda")
     cfg = NCI60
@@ -847,19 +905,10 @@ def gaussian(torch, rows, launches):
             rows["corr"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=lib_ms)
 
-    # level0 on C, exact against its plain version (core/levels.level0)
+    # level0 on C: both entries exact against their plain versions
     c = ops.correlation(x)
-    adj0 = L.level0(c, tau[0])
-    n_diff = int((level0.level0_kernel(c, tau[0]) != adj0).sum())
-    k_ms = cuda_ms(torch, lambda: level0.level0_kernel(c, tau[0]))
-    p_ms = cuda_ms(torch, lambda: L.level0(c, tau[0]))
-    b_ms, b_by = bound(5 * n * n, LEVEL0_OPS_PER_CELL * n * n)
-    print(f"kernel level0 n={n}: {int(adj0.sum()) // 2} edges, max degree "
-          f"{int(adj0.sum(1).max())}; differs from the plain version in {n_diff} cells (exact "
-          f"required); kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {b_ms:.5f} ms ({b_by})")
-    check(n_diff == 0, f"level0 differs from its plain version in {n_diff} cells")
-    rows["level0"] = dict(max_abs_err=float(n_diff), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None)
+    rows["level0"] = level0_phase(torch, "NCI-60", c, tau[0])
+    adj0, sep0, _ = ops.level0_span(c, tau[0], 8)
 
     # level1 on the level-0 adjacency
     rem_k, kwin_k = level1.level1_dense_kernel(c, adj0, tau[1])
@@ -915,8 +964,6 @@ def gaussian(torch, rows, launches):
                           bound_by=b_by, library_ms=None)
 
     # cholinv and cisweep on the first ℓ = 2 chunk of the run
-    sep0 = torch.full((n, n, 8), -1, dtype=torch.int32, device=dev)
-    sep0[:, :, 0] = torch.where(adj0, -1, -2).to(torch.int32)
     adj1, _sep1, _ = engines.run_level(c, adj0, sep0, 1, tau[1])
     ell = 2
     npr = int(adj1.sum(1).max())
@@ -991,14 +1038,16 @@ def gaussian(torch, rows, launches):
     check((run.adj == first.adj).all() and (run.sepsets == first.sepsets).all(),
           "two runs of pc(x) on the card disagree")
     print(f"e2e pc(x) NCI-60 n={n} m={m}: {e2e_s:.3f} s (first run {first_s:.3f} s), "
-          f"{run.levels_run} levels, {int(run.adj.sum()) // 2} edges, "
-          f"timings {json.dumps(run.timings_s)}")
+          f"{run.levels_run} levels, {int(run.adj.sum()) // 2} edges, level0 span "
+          f"{run.timings_s['level0']:.6f} s, timings {json.dumps(run.timings_s)}")
     for st in run.level_stats:
         print(f"  level {st['level']}: engine {st['engine']} max degree {st['npr']} "
               f"chunks {st['chunks']} {run.timings_s.get('level%d' % st['level'], 0.0):.4f} s")
     print(f"  launches {json.dumps(build.LAUNCHES)}")
     check(all(launches[k] > 0 for k in path),
           f"a kernel of the Gaussian path never launched: {build.LAUNCHES}")
+    check(launches["level0"] == 1, f"the level-0 span launched level0 {launches['level0']} "
+          "times, not once")
     check(launches["skernel"] == chunks and not build.LAUNCHES["cholinv"]
           and not build.LAUNCHES["cisweep"],
           f"auto launched skernel {launches['skernel']} times for {chunks} chunks at ℓ ≥ 2, or "

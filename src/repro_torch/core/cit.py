@@ -142,6 +142,14 @@ class GaussianCITest:
 
         return ops.level0(stats, tau)
 
+    def level0_span(self, stats, tau, sepset_depth):
+        """(adj, sep, max_deg) of level 0: the fused level-0 kernel, one
+        launch, for a CUDA C, the plain ``levels.level0_span`` for a CPU
+        one (``ops.level0_span`` picks by device)."""
+        from repro_torch.kernels import ops
+
+        return ops.level0_span(stats, tau, sepset_depth)
+
 
 # ------------------------------------------------------------- discrete G²
 class DiscreteStats(NamedTuple):
@@ -218,6 +226,13 @@ class DiscreteCITest:
         from . import levels as L
 
         return L.level0_g2(stats, tau, r=self.r)
+
+    def level0_span(self, stats, tau, sepset_depth):
+        """(adj, sep, max_deg) of level 0: ``level0_g2`` and the plain
+        sepset fill."""
+        from . import levels as L
+
+        return L.level0_fill(self.level0(stats, tau), sepset_depth)
 
     def table_width(self, ell: int) -> int:
         """K = r^(ℓ+2) cells per test at level ℓ."""

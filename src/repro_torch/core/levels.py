@@ -76,6 +76,30 @@ def level0(c: torch.Tensor, tau: float) -> torch.Tensor:
     return keep & ~torch.eye(n, dtype=torch.bool, device=c.device)
 
 
+def max_degree(adj: torch.Tensor) -> torch.Tensor:
+    """The largest row degree of adj (n, n) bool, a 0-d int32 tensor (0
+    for n = 0)."""
+    if adj.shape[0] == 0:
+        return torch.zeros((), dtype=torch.int32, device=adj.device)
+    return adj.sum(dim=1, dtype=torch.int32).max()
+
+
+def level0_fill(adj: torch.Tensor, sepset_depth: int):
+    """The rest of the level-0 span after the adjacency: (adj, sep (n, n,
+    sepset_depth) int32 with slot 0 −1 for a kept edge and −2 for a
+    removed one, the diagonal too, and −1 elsewhere, max_degree(adj))."""
+    n = adj.shape[0]
+    sep = torch.full((n, n, sepset_depth), -1, dtype=torch.int32, device=adj.device)
+    sep[:, :, 0] = torch.where(adj, -1, -2).to(torch.int32)
+    return adj, sep, max_degree(adj)
+
+
+def level0_span(c: torch.Tensor, tau: float, sepset_depth: int):
+    """The plain version of the fused level-0 kernel (kernels/level0.py::
+    level0_span): ``level0`` and ``level0_fill``."""
+    return level0_fill(level0(c, tau), sepset_depth)
+
+
 def level0_g2(stats, alpha: float, *, r: int) -> torch.Tensor:
     """Unconditional discrete pass: keep edge (i, j) when the pairwise G²
     test rejects independence, chi2.sf(G², dof) < α, i ≠ j.

@@ -8,11 +8,12 @@ route).
     run = pc(x, engine="S-grid")                  # one sgrid launch a level
     run = pc(codes, alpha=0.01, test="discrete")  # categorical samples
 
-Host loop over levels (paper Algorithm 2). Gaussian: level 0 on the
-level-0 kernel, then each level on the engine ``engines.resolve`` names;
-"auto" runs ℓ = 1 on the dense level-1 kernel and ℓ ≥ 2 on chunked
-cuPC-S (the fused skernel, one launch a chunk). Discrete: every level on the G² worklist
-through the gsq kernel. Then orientation to the CPDAG. Results come back
+Host loop over levels (paper Algorithm 2). Gaussian: level 0 (adjacency,
+level-0 sepsets and ℓ = 1's max degree) in one launch of the level-0
+kernel, then each level on the engine ``engines.resolve`` names; "auto"
+runs ℓ = 1 on the dense level-1 kernel and ℓ ≥ 2 on chunked cuPC-S (the
+fused skernel, one launch a chunk). Discrete: every level on the G²
+worklist through the gsq kernel. Then orientation to the CPDAG. Results come back
 as numpy arrays in the reference's dtypes.
 """
 from __future__ import annotations
@@ -26,8 +27,9 @@ import torch
 from .. import device as D
 from ..obs import Tracer
 from . import engines as E
+from . import levels as L
 from . import validate as V
-from .cit import DiscreteStats, correlation_from_samples, encode_discrete, resolve_citest
+from .cit import correlation_from_samples, encode_discrete, resolve_citest
 from .combinadics import MAX_LEVEL
 from .orient import cpdag_from_skeleton
 
@@ -118,19 +120,19 @@ def _pc_run_host_loop(stats, test, *, engine, lmax, sepset_depth, cell_budget, o
     """The per-level host loop, one span per level; each span waits for the
     level's work on the card before it closes. ``stats`` is the test's
     sufficient statistic: C (n, n) or ``DiscreteStats`` with (m, n) codes."""
-    arr = stats.codes if isinstance(stats, DiscreteStats) else stats
-    n, dev = arr.shape[-1], arr.device
     with tracer.span("level0", level=0) as sp:
-        adj = test.level0(stats, test.tau(0, insufficient="warn"))
-        sep = torch.full((n, n, sepset_depth), -1, dtype=torch.int32, device=dev)
-        sep[:, :, 0] = torch.where(adj, -1, -2).to(torch.int32)
+        # on the card for a Gaussian C: one fused launch, adj, the level-0
+        # sepsets and ℓ = 1's max degree
+        adj, sep, max_deg = test.level0_span(stats, test.tau(0, insufficient="warn"),
+                                             sepset_depth)
         sp.sync(adj)
 
     stats_out = []
     ell = 1
     while ell <= lmax:
-        max_deg = int(adj.sum(dim=1, dtype=torch.int32).max()) if n else 0
-        if max_deg - 1 < ell:
+        if ell > 1:
+            max_deg = L.max_degree(adj)
+        if int(max_deg) - 1 < ell:
             break
         with tracer.span(f"level{ell}", level=ell) as sp:
             adj, sep, st = E.run_level(

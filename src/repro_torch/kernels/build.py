@@ -57,6 +57,7 @@ SIGNATURES = {
     "repro_cholinv": (_P, _P, _P, _P, _P, _LL, _I, _F, _P),
     "repro_cisweep": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _P),
     "repro_level0": (_P, _P, _I, _F, _P),
+    "repro_level0_span": (_P, _P, _P, _P, _I, _I, _F, _P),
     "repro_gsq": (_P, _P, _LL, _I, _I, _I, _P),
     "repro_sgrid": (_P, _P, _P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
                     _P),

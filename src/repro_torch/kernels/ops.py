@@ -1,5 +1,6 @@
 """Public wrappers around the hand kernels, with the contracts of
-``src/repro/kernels/ops.py``: ``correlation``, ``level0``,
+``src/repro/kernels/ops.py``: ``correlation``, ``level0`` (and
+``level0_span``, the driver's whole level-0 span),
 ``level1_dense``, ``ci_shared``, ``chunk_s_kernel``, ``ci_shared_grid``,
 ``chunk_s_grid`` and ``gsq``; and ``chunk_s_two_launch``, the
 reference's two-kernel chunk.
@@ -49,6 +50,17 @@ def level0(c: torch.Tensor, tau: float) -> torch.Tensor:
 
         return L.level0(c, tau)
     return _level0.level0_kernel(c.contiguous(), tau)
+
+
+def level0_span(c: torch.Tensor, tau: float, sepset_depth: int):
+    """The driver's level-0 span, (adj (n, n) bool, sep (n, n,
+    sepset_depth) int32, max_deg 0-d int32): the fused level-0 kernel, one
+    launch, for a CUDA C; the plain ``levels.level0_span`` for a CPU one."""
+    if c.device.type == "cpu":
+        from repro_torch.core import levels as L
+
+        return L.level0_span(c, tau, sepset_depth)
+    return _level0.level0_span(c.contiguous(), tau, sepset_depth)
 
 
 def gsq(jc: torch.Tensor, *, r: int, q: int) -> torch.Tensor:
