@@ -69,7 +69,26 @@ Phases, each of which exits non-zero on failure:
    |p/α − 1| ≤ 1e-4 (the p band) or within the first-order error bound of
    the fp32 G² (see ``g2_of``), both counted; then equality with the
    port's CPU run on an n = 40 instance outside the p band, and with the
-   float64 serial oracle's skeleton on an n = 12 instance.
+   float64 serial oracle's skeleton on an n = 12 instance;
+6. batch (``repro_torch.batch``; each path with the counts reset just
+   before it and read just after): (a) the reference's many-graph workload
+   (``benchmarks/pc_batch.py`` FULL_CONFIGS["sparse"]: B = 64, n = 96,
+   m = 3000, density 0.015, α = 0.01, cap 3): ``plan_schedule``, then
+   ``pc_scan_batch`` on the schedule, one CUDA graph recorded once and
+   replayed (the replays' launches equal the graph's, level0 once a lane),
+   every lane bitwise ``pc_from_corr(engine="S-kernel")`` at the same cap,
+   graphs/s beside the sequential loop of ``pc_from_corr(engine="auto")``,
+   ``alpha_sweep`` over four α on lane 0's C (each lane bitwise
+   ``pc_scan`` at its α) and four lanes against the port's CPU run
+   outside the τ band; (b) ``bootstrap_pc`` on NCI-60 (8 replicates, one
+   graph a level), its spans, every replicate bitwise "S-kernel" on its
+   own C, ``edge_freq`` the replicates' mean, the CPDAG that of a vote
+   recomputed by a scatter of the recorded ids, corr, level0 and skernel
+   launched 8, 8 and the planned times; (c) ``pc(codes, test="discrete",
+   engine="scan")`` on the PIGS stand-in, bitwise the "G2-kernel" host
+   loop at the same cap (2 where 3 levels would sweep more than 10 000
+   steps), gsq launched. Beside each time, the card's name and power
+   limit.
 
 The last two lines are a ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -83,6 +102,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -101,6 +121,13 @@ ENGINE_RUNS = (("S", dict(engine="S")), ("E", dict(engine="E")),
 PIGS = dict(n=441, m=5000, density=0.0061, arity=3, alpha=0.01, seed=0)
 D_SMALL = dict(n=40, m=2000, density=0.1, arity=3, alpha=0.01, seed=1)
 D_ORACLE = dict(n=12, m=600, density=0.3, arity=3, alpha=0.05, seed=4)
+# the reference's many-graph workload: benchmarks/pc_batch.py:46-49, "sparse"
+BATCH = dict(B=64, n=96, m=3000, density=0.015, alpha=0.01, max_level=3, seed=100)
+SWEEP_ALPHAS = (0.001, 0.005, 0.01, 0.05)
+BOOT_REPLICATES = 8
+# the discrete scan runs its default cap 3 only when the first call at cap
+# 3 (recording included), predicted from cap 2's, takes at most this long
+DISCRETE_SCAN_S = 60.0
 P_BAND = 1e-4
 U32 = 2.0**-24
 # fp32 operations per tested level-1 cell: num 2, den 5, max 1, rsqrt 1,
@@ -819,6 +846,8 @@ def main() -> int:
     gaussian(torch, rows, launches)
     section56(torch, torch.device("cuda"))
     discrete(torch, rows, launches)
+    card = smi.stdout.strip()
+    batch(torch, card)
 
     sources = {"corr": ("src/repro_torch/csrc/corr.cu", "src/repro/kernels/corr.py:38"),
                "level0": ("src/repro_torch/csrc/level0.cu", "src/repro/kernels/level0.py:28"),
@@ -1217,6 +1246,427 @@ def discrete(torch, rows, launches):
     print(f"  n={do['n']} m={do['m']} against the float64 serial oracle at max_level 2: "
           f"skeleton equal {same}, {int(got.adj.sum()) // 2} edges")
     check(same, "the discrete skeleton differs from the float64 serial oracle")
+
+
+def spent(torch, t0):
+    """Seconds since t0, once the card has finished its work."""
+    torch.cuda.synchronize()
+    return time.monotonic() - t0
+
+
+# the hand kernels by (a part of) their symbol, under the names they are
+# counted by; PyTorch's own reduce_kernel lives in at::native
+KERNEL_NAMES = (("level0_kernel", "level0"), ("level1_kernel", "level1"), ("gsq_kernel", "gsq"),
+                ("syrk_kernel", "corr"), ("reduce_kernel", "corr"), ("cholinv_kernel", "cholinv"),
+                ("cisweep_kernel", "cisweep"), ("CholinvMath", "skernel"), ("SgridMath", "sgrid"))
+
+
+def kernel_label(symbol):
+    """The ``build.LAUNCHES`` name of a hand kernel's (mangled or plain)
+    symbol, None for any other kernel."""
+    if "at::" in symbol or "2at6native" in symbol:
+        return None
+    return next((name for part, name in KERNEL_NAMES if part in symbol), None)
+
+
+def kernel_time(torch, fn):
+    """(summed device time in ms of the kernels that one call of ``fn``
+    runs, their count, the hand kernels among them counted by the names of
+    ``build.LAUNCHES``) from a ``torch.profiler`` trace after a warm call;
+    (None, 0, {}) when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    if not busy:
+        return None, 0, {}
+    traced = {}
+    for e in busy:
+        name = kernel_label(e.key)
+        if name is not None:
+            traced[name] = traced.get(name, 0) + e.count
+    return (sum(e.self_device_time_total for e in busy) / 1e3, sum(e.count for e in busy),
+            traced)
+
+
+def graph_kernels(prog):
+    """(the hand kernels among a recorded program's kernel nodes, by
+    ``build.LAUNCHES`` name; the count of all its kernel nodes): what one
+    replay launches, read from the graphs themselves through the driver
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``,
+    ``cuGraphKernelNodeGetParams``, ``cuFuncGetName``)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2", cu.cuGraphKernelNodeGetParams)
+    labels, census, total = {}, {}, 0
+    for g in prog.graphs:
+        handle = ctypes.c_void_p(g.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+        nodes = (ctypes.c_void_p * n.value)()
+        check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            rc = cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+            check(rc == 0, f"cuGraphNodeGetType failed with CUresult {rc}")
+            if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+                continue
+            total += 1
+            params = (ctypes.c_byte * 128)()  # CUDA_KERNEL_NODE_PARAMS_v2 and room
+            rc = get_params(ctypes.c_void_p(node), params)
+            check(rc == 0, f"cuGraphKernelNodeGetParams failed with CUresult {rc}")
+            func = ctypes.c_void_p.from_buffer(params, 0).value
+            kern = ctypes.c_void_p.from_buffer(params, 56).value  # the v2 struct's CUkernel
+            key = func or kern
+            if key not in labels:
+                name = ctypes.c_char_p()
+                rc = (cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)) if func
+                      else cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(kern)))
+                check(rc == 0, f"the name of a kernel node: CUresult {rc}")
+                labels[key] = kernel_label(name.value.decode())
+            if labels[key] is not None:
+                census[labels[key]] = census.get(labels[key], 0) + 1
+    return census, total
+
+
+def replay_kernels(torch, prog, label):
+    """Hold a program's graphs and a traced replay to its counted launches:
+    the hand kernels among its kernel nodes must equal the counts; a
+    ``torch.profiler`` trace of one replay (up to three, until one holds
+    an event for every graph node) must show them, or, where every trace
+    lost records, no more of any. Returns (replay's busy ms, device events
+    traced, hand kernels traced, kernel nodes)."""
+    counted = nonzero(prog.launches)
+    census, kernel_nodes = graph_kernels(prog)
+    check(census == counted,
+          f"{label}: its graphs hold the hand kernels {census}, not the counted {counted}")
+    for _ in range(3):
+        busy_ms, events, traced = kernel_time(torch, prog.launch)
+        if events == sum(prog.nodes):
+            break
+    if events == sum(prog.nodes):
+        check(traced == counted, f"{label}: a traced replay ran {traced}, not {counted}")
+    else:
+        print(f"  {label}: each of three traces lost records (the last {events} device events "
+              f"of {sum(prog.nodes)} graph nodes); the trace is held to at most the counts")
+        check(set(traced) <= set(counted) and all(traced[k] <= counted[k] for k in traced),
+              f"{label}: a traced replay ran {traced}, beyond {counted}")
+    return busy_ms, events, traced, kernel_nodes
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def batch(torch, card):
+    """Phase 6: the batch subsystem on the card. Each of its paths runs with
+    the counts reset just before and read just after; ``card`` is the
+    nvidia-smi name and power limit printed beside each time."""
+    from repro_torch.kernels import build
+
+    for part in (batch_many, batch_bootstrap, batch_discrete):
+        part(torch, card, build)
+
+
+def batch_many(torch, card, build):
+    """(a) The reference's many-graph workload (benchmarks/pc_batch.py:46-49
+    FULL_CONFIGS["sparse"]): ``plan_schedule``, then ``pc_scan_batch`` on
+    the schedule, one CUDA graph recorded once and replayed; every lane
+    bitwise the port's "S-kernel" at the same cap; graphs/s of the replay
+    beside the sequential loop of ``pc_from_corr(engine="auto")``; an α
+    sweep on lane 0's C; four lanes against the port's CPU run."""
+    from repro_torch import pc_from_corr
+    from repro_torch.batch import capture, scan_pc
+    from repro_torch.core import levels as L
+    from repro_torch.core.cit import threshold
+    from repro_torch.data.synthetic_dag import sample_gaussian_dag
+    from repro_torch.kernels import ops
+
+    cfg = BATCH
+    b, n, m, alpha, lmax = cfg["B"], cfg["n"], cfg["m"], cfg["alpha"], cfg["max_level"]
+    dev = torch.device("cuda")
+    cs = torch.stack([ops.correlation(torch.tensor(
+        sample_gaussian_dag(n, m, cfg["density"], seed=cfg["seed"] + k)[0], dtype=torch.float32,
+        device=dev)) for k in range(b)])
+    kw = dict(alpha=alpha, max_level=lmax, orient=False, device=dev)
+    capture.clear()
+    t0 = time.monotonic()
+    schedule = scan_pc.plan_schedule(cs, m, alpha=alpha, max_level=lmax, bucket=False,
+                                     device=dev)
+    plan_s = spent(torch, t0)
+    budget = max(L.DEFAULT_CELL_BUDGET // b, 2**16)
+    plan = [scan_pc._plan_chunk(n, w, ell, budget) for ell, w in enumerate(schedule, 1)]
+    dense = scan_pc._use_dense_l1(n, schedule[0], budget)
+    t0 = time.monotonic()
+    first = scan_pc.pc_scan_batch(cs, m, n_prime=schedule, **kw)
+    record_s = spent(torch, t0)
+    prog = capture.programs()[-1]
+    print(f"batch (a) many graphs: B={b} n={n} m={m} density {cfg['density']} α={alpha} "
+          f"max_level {lmax}, seeds {cfg['seed']}+b; schedule {schedule} (plan_schedule "
+          f"{plan_s:.3f} s), (n_chunk, steps) per level {plan}, dense ℓ=1 {dense}; first call "
+          f"(eager run, capture, first replay) {prog.record_s:.3f} s of {record_s:.3f} s, "
+          f"the graph's launches {json.dumps(prog.launches)}  [{card}]")
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    reps, times = 5, []
+    for _ in range(reps):
+        t0 = time.monotonic()
+        res = scan_pc.pc_scan_batch(cs, m, n_prime=schedule, **kw)
+        times.append(spent(torch, t0))
+    got = dict(build.LAUNCHES)
+    want = {k: reps * prog.launches.get(k, 0) for k in got}
+    steps = sum(s for ell, (_, s) in enumerate(plan, 1) if not (ell == 1 and dense))
+    print(f"  {reps} replays: {', '.join(f'{t:.4f}' for t in times)} s, "
+          f"{b / min(times):.1f} graphs/s best, launches {json.dumps(got)}")
+    check(got == want, f"the replays' launches {got} are not {reps} × the graph's {want}")
+    check(got["level0"] == reps * b and got["skernel"] > 0 and not got["corr"],
+          f"a replay did not launch level0 once a lane and skernel: {got}")
+    check(got["skernel"] <= reps * b * steps, f"skernel launched {got['skernel']} times, more "
+          f"than {reps} × {b} lanes × {steps} planned steps")
+    check(all(torch.equal(getattr(first, f), getattr(res, f)) for f in res._fields),
+          "two calls of pc_scan_batch on the card disagree")
+    check(bool(res.ok.all()), f"ok is False for lanes {torch.nonzero(~res.ok).flatten().tolist()}")
+    replay_ms = cuda_ms(torch, prog.launch, reps=5, warmup=1)
+    busy_ms, kernels, traced, total = replay_kernels(torch, prog, "(a)")
+    print(f"  one replay: {replay_ms:.3f} ms between CUDA events, its {kernels} kernels "
+          f"{busy_ms if busy_ms is None else round(busy_ms, 3)} ms busy (torch.profiler), "
+          f"graphs of {prog.nodes} nodes ({total} kernel nodes); hand kernels in the graphs and "
+          f"traced {json.dumps(traced)}  [{card}]")
+
+    engine = "auto" if dense else "S-kernel"
+    for k in range(b):
+        ref = pc_from_corr(cs[k], m, alpha=alpha, engine=engine, max_level=lmax, orient=False,
+                           device=dev)
+        check((res.adj[k].cpu().numpy() == ref.adj).all()
+              and (res.sepsets[k].cpu().numpy() == ref.sepsets).all(),
+              f"lane {k} differs from pc_from_corr(engine={engine!r}) at the same cap")
+    for _ in range(2):  # the first loop warms PyTorch's modules
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for k in range(b):
+            pc_from_corr(cs[k], m, alpha=alpha, max_level=lmax, orient=False, device=dev)
+        loop_s = spent(torch, t0)
+    print(f"  every lane bitwise pc_from_corr(engine={engine!r}, max_level={lmax}); the "
+          f"sequential loop of pc_from_corr(engine='auto') {loop_s:.3f} s = "
+          f"{b / loop_s:.1f} graphs/s, replay {b / min(times):.1f} graphs/s  [{card}]")
+
+    alphas = SWEEP_ALPHAS
+    t0 = time.monotonic()
+    sweep = scan_pc.alpha_sweep(cs[0], m, alphas, max_level=lmax, orient=False, device=dev)
+    sweep_s = spent(torch, t0)
+    for k, a in enumerate(alphas):
+        solo = scan_pc.pc_scan(cs[0], m, alpha=a, max_level=lmax, orient=False, device=dev)
+        check(torch.equal(sweep.adj[k], solo.adj) and torch.equal(sweep.sepsets[k], solo.sepsets),
+              f"alpha_sweep lane α={a} differs from pc_scan at that α")
+    print(f"  alpha_sweep α ∈ {alphas} on lane 0's C: {sweep_s:.3f} s with its capture, edges "
+          f"{[int(a.sum()) // 2 for a in sweep.adj]}, each lane bitwise pc_scan at its α, ok "
+          f"{bool(sweep.ok.all())}  [{card}]")
+    check(bool(sweep.ok.all()), "alpha_sweep flagged a lane")
+
+    cpu = scan_pc.pc_scan_batch(cs[:4].cpu(), m, alpha=alpha, max_level=lmax, n_prime=schedule,
+                                orient=False, device="cpu")
+    for k in range(4):
+        c64 = cs[k].double().cpu().numpy()
+        n_diff, unexplained = explain_diffs(
+            SimpleNamespace(adj=res.adj[k].cpu().numpy(), sepsets=res.sepsets[k].cpu().numpy()),
+            SimpleNamespace(adj=cpu.adj[k].numpy(), sepsets=cpu.sepsets[k].numpy()), c64, m,
+            alpha, threshold)
+        print(f"  lane {k} CUDA vs CPU: {n_diff} edges differ ({unexplained} outside the τ band "
+              f"and fp32 bound), {int(res.adj[k].sum()) // 2} edges")
+        check(unexplained == 0, f"lane {k} differs from the CPU run outside the τ band")
+    capture.clear()
+
+
+def batch_bootstrap(torch, card, build):
+    """(b) ``bootstrap_pc`` on the NCI-60 stand-in (Table 1's shape), the
+    level-synced path (one CUDA graph a level), run twice: the second run
+    replays every graph, and its counts are the path's."""
+    import numpy as np
+
+    from repro_torch import pc_from_corr
+    from repro_torch.batch import capture, ensemble, scan_pc
+    from repro_torch.core import levels as L, orient
+    from repro_torch.data.synthetic_dag import sample_gaussian_dag
+
+    cfg, nb = NCI60, BOOT_REPLICATES
+    n, m, alpha = cfg["n"], cfg["m"], cfg["alpha"]
+    dev = torch.device("cuda")
+    x_np, _ = sample_gaussian_dag(n, m, cfg["density"], seed=cfg["seed"])
+    x = torch.tensor(x_np, dtype=torch.float32, device=dev)
+    capture.clear()
+    t0 = time.monotonic()
+    first = ensemble.bootstrap_pc(x, n_boot=nb, alpha=alpha, seed=0, device=dev)
+    first_s = spent(torch, t0)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.monotonic()
+    run = ensemble.bootstrap_pc(x, n_boot=nb, alpha=alpha, seed=0, device=dev)
+    run_s = spent(torch, t0)
+    got = dict(build.LAUNCHES)
+    print(f"batch (b) bootstrap_pc NCI-60 n={n} m={m} n_boot={nb} seed 0: first call "
+          f"{first_s:.3f} s (records one graph a level), second {run_s:.3f} s, spans "
+          f"{json.dumps({k: round(v, 6) for k, v in run.timings_s.items()})}, schedule "
+          f"{run.schedule}, launches {json.dumps(got)}  [{card}]")
+    check(np.array_equal(first.replicate_adj, run.replicate_adj)
+          and np.array_equal(first.cpdag, run.cpdag), "two bootstrap_pc runs disagree")
+
+    idx = ensemble.resample_indices(nb, m, seed=0)
+    cs = ensemble.bootstrap_corr(x, idx)
+    build.reset_launches()
+    res, schedule = scan_pc.scan_levels_batch(cs, m, alpha=alpha, orient=False, device=dev)
+    check(got == {k: v + (nb if k == "corr" else 0) for k, v in build.LAUNCHES.items()},
+          f"bootstrap_pc launched {got}, its corr and scan alone {build.LAUNCHES}")
+    budget = max(L.DEFAULT_CELL_BUDGET // nb, 2**16)
+    planned, levels = 0, []
+    for ell, w in enumerate(schedule, 1):
+        if int(res.max_degs[:, ell - 1].max()) - 1 < ell:
+            levels.append((ell, w, "skipped"))
+            continue
+        check(not (ell == 1 and scan_pc._use_dense_l1(n, w, budget)), "NCI-60 ℓ=1 went dense")
+        n_chunk, steps = scan_pc._plan_chunk(n, w, ell, budget)
+        levels.append((ell, w, n_chunk, steps))
+        planned += nb * steps
+    print(f"  levels (ℓ, width, n_chunk, steps a lane): {levels}; skernel planned {planned}")
+    check(got["corr"] == nb and got["level0"] == nb and got["skernel"] == planned,
+          f"bootstrap_pc launched corr {got['corr']}, level0 {got['level0']}, skernel "
+          f"{got['skernel']} times, not {nb}, {nb} and {planned}")
+    check(np.array_equal(res.adj.cpu().numpy(), run.replicate_adj),
+          "scan_levels_batch on the replicates' C differs from bootstrap_pc's replicates")
+    check(run.replicate_ok.all(), "a replicate is flagged degree-capped")
+    level1 = next(p for p in capture.programs() if p.key[:2] == ("scan_level", 1))
+    l1_ms = cuda_ms(torch, level1.launch, reps=2, warmup=1)
+    l1_busy, l1_kernels, l1_traced, l1_total = replay_kernels(torch, level1, "(b) ℓ=1")
+    for prog in capture.programs():
+        if prog is not level1:
+            census, _ = graph_kernels(prog)
+            check(census == nonzero(prog.launches), f"(b) {prog.key[:2]}: its graphs hold "
+                  f"{census}, not the counted {prog.launches}")
+    call_busy, call_kernels, call_traced = kernel_time(torch, lambda: ensemble.bootstrap_pc(
+        x, n_boot=nb, alpha=alpha, seed=0, device=dev))
+    print(f"  ℓ=1 program replay {l1_ms:.3f} ms between CUDA events, its {l1_kernels} kernels "
+          f"{l1_busy} ms busy, graphs of {level1.nodes} nodes ({l1_total} kernel nodes), hand "
+          f"kernels in the graphs and traced {json.dumps(l1_traced)}; every program's graphs "
+          f"hold its counted kernels; a steady call's {call_kernels} kernels {call_busy} ms "
+          f"busy, hand kernels traced {json.dumps(call_traced)} (torch.profiler)  [{card}]")
+    check(all(v <= got.get(k, 0) for k, v in call_traced.items()),
+          f"a traced bootstrap_pc call ran {call_traced}, beyond the counted {got}")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for k in range(nb):
+        ref = pc_from_corr(cs[k], m, alpha=alpha, engine="S-kernel", max_level=3, orient=False,
+                           device=dev)
+        check((run.replicate_adj[k] == ref.adj).all()
+              and (res.sepsets[k].cpu().numpy() == ref.sepsets).all(),
+              f"replicate {k} differs from pc_from_corr(c_b, engine='S-kernel', max_level=3)")
+    loop_s = spent(torch, t0)
+    print(f"  the {nb} replicates through pc_from_corr(engine='S-kernel', max_level=3) one by "
+          f"one: {loop_s:.3f} s with the checks  [{card}]")
+    freq = run.replicate_adj.sum(axis=0).astype(np.float32) * (np.float32(1) / np.float32(nb))
+    check(np.array_equal(run.edge_freq, freq), "edge_freq is not the replicates' mean")
+    # the vote again, by a scatter of the recorded ids (not sepset_membership)
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    removed = ~res.adj & ~eye
+    votes = torch.zeros(n * n * n, dtype=torch.int32, device=dev)
+    for k in range(nb):
+        sep = res.sepsets[k]
+        i, j, slot = torch.nonzero((sep >= 0) & removed[k][..., None], as_tuple=True)
+        votes.index_add_(0, (i * n + j) * n + sep[i, j, slot].long(),
+                         torch.ones_like(i, dtype=torch.int32))
+    member = votes.view(n, n, n) * 2 > removed.sum(0, dtype=torch.int32)[..., None]
+    del votes
+    cpdag = orient.cpdag_from_membership(torch.tensor(run.adj, device=dev), member)
+    check(np.array_equal(cpdag.cpu().numpy(), run.cpdag),
+          "the ensemble CPDAG differs from the recomputed vote's")
+    print(f"  every replicate bitwise pc_from_corr(engine='S-kernel', max_level=3); "
+          f"{int(run.adj.sum()) // 2} stable edges; CPDAG equal to the recomputed vote's; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del member, cs, res
+    capture.clear()
+    torch.cuda.empty_cache()
+
+
+def batch_discrete(torch, card, build):
+    """(c) ``pc(codes, test="discrete", engine="scan")`` on the PIGS
+    stand-in, bitwise the host loop's "G2-kernel" at the same cap: cap 2,
+    then the default cap 3 where cap 2's first call per step predicts that
+    it takes at most ``DISCRETE_SCAN_S``."""
+    from repro_torch.batch import scan_pc
+    from repro_torch.core import cit, levels as L
+    from repro_torch.data.synthetic_dag import sample_discrete_dag
+
+    cfg = PIGS
+    n, m = cfg["n"], cfg["m"]
+    x_np, _ = discrete_codes(sample_discrete_dag, cfg)
+    test, stats = cit.DiscreteCITest.from_samples(x_np, alpha=cfg["alpha"], device="cuda")
+    w = max(1, min(L.bucket_npr(int(L.max_degree(test.level0(stats, cfg["alpha"])))), n))
+    steps = {ell: scan_pc._plan_chunk(n, w, ell, L.DEFAULT_CELL_BUDGET, m=m)[1]
+             for ell in (1, 2, 3)}
+    print(f"batch (c) discrete scan, PIGS stand-in n={n} m={m}: level-0 width {w}, steps a "
+          f"level {steps}")
+    first_s = discrete_scan(torch, card, build, x_np, w, 2)
+    per_step = first_s / (steps[1] + steps[2])
+    predicted = per_step * sum(steps.values())
+    print(f"  cap 3: its first call predicted {predicted:.1f} s from cap 2's "
+          f"{per_step * 1e3:.3f} ms a step: "
+          + ("run" if predicted <= DISCRETE_SCAN_S else f"not run (over {DISCRETE_SCAN_S:.0f} s)"))
+    if predicted <= DISCRETE_SCAN_S:
+        discrete_scan(torch, card, build, x_np, w, 3)
+
+
+def discrete_scan(torch, card, build, x_np, w, cap):
+    """The discrete scan at ``cap``: a recording call, then a steady call
+    whose launches are counted and held to the plan; both bitwise
+    "G2-kernel" at the same cap. Returns the first call's seconds."""
+    import numpy as np
+
+    from repro_torch import pc
+    from repro_torch.batch import capture, scan_pc
+    from repro_torch.core import levels as L
+
+    cfg = PIGS
+    n, m = cfg["n"], cfg["m"]
+    capture.clear()
+    t0 = time.monotonic()
+    run = pc(x_np, alpha=cfg["alpha"], test="discrete", engine="scan", max_level=cap)
+    run_s = spent(torch, t0)
+    (prog,) = capture.programs()
+    build.reset_launches()
+    t0 = time.monotonic()
+    again = pc(x_np, alpha=cfg["alpha"], test="discrete", engine="scan", max_level=cap)
+    again_s = spent(torch, t0)
+    got = dict(build.LAUNCHES)
+    pc(x_np, alpha=cfg["alpha"], test="discrete", engine="G2-kernel", max_level=cap)
+    t0 = time.monotonic()
+    ref = pc(x_np, alpha=cfg["alpha"], test="discrete", engine="G2-kernel", max_level=cap)
+    ref_s = spent(torch, t0)
+    # a call: level 0 once to plan the width (eager), then the replay: level
+    # 0 again and one gsq launch a step of every level
+    l0_blocks = -(-n // max(1, L.LEVEL0_JC_BYTES // (4 * n * m)))
+    planned = sum(scan_pc._plan_chunk(n, w, ell, L.DEFAULT_CELL_BUDGET, m=m)[1]
+                  for ell in range(1, cap + 1))
+    print(f"  cap {cap}: host loop pc(engine='G2-kernel') {ref_s:.3f} s; scan first call "
+          f"{run_s:.3f} s (recording {prog.record_s:.3f} s, graphs of {prog.nodes} nodes), a "
+          f"steady call {again_s:.3f} s, {run.levels_run} levels, {int(run.adj.sum()) // 2} "
+          f"edges; a steady call's launches {json.dumps(nonzero(got))} = level 0's "
+          f"{l0_blocks} row blocks twice + {planned} steps  [{card}]")
+    check(got == {**{k: 0 for k in got}, "gsq": 2 * l0_blocks + planned},
+          f"a steady discrete scan launched {got}, not gsq {l0_blocks} × 2 + {planned}")
+    check(prog.launches["gsq"] == l0_blocks + planned,
+          f"the discrete graph holds {prog.launches['gsq']} gsq launches, not "
+          f"{l0_blocks} + {planned}")
+    for other, name in ((again, "its replay"), (ref, "pc(engine='G2-kernel')")):
+        check(np.array_equal(run.adj, other.adj) and np.array_equal(run.sepsets, other.sepsets)
+              and np.array_equal(run.cpdag, other.cpdag),
+              f"the discrete scan differs from {name} at cap {cap}")
+    capture.clear()
+    return run_s
+
 
 if __name__ == "__main__":
     try:

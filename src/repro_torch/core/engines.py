@@ -22,8 +22,11 @@
               the card. Under a discrete test "S"/"E" name "G2" and
               "auto"/"S-kernel" name "G2-kernel", as in the reference.
 
-The reference's "scan" engine is not ported yet; naming it raises a
-``ValueError`` that says which ROADMAP item ports it.
+  "scan"      the fixed-shape batch path (``batch/scan_pc.py``): the
+              whole skeleton phase up to a static level cap, one CUDA
+              graph on the card. A whole-run engine: ``pc_from_corr``
+              dispatches it before the level loop, and ``resolve`` rejects
+              it at level granularity. ``batch_run`` runs it over a batch.
 """
 from __future__ import annotations
 
@@ -36,13 +39,21 @@ from .levels import DEFAULT_CELL_BUDGET
 
 #: engines of the discrete G² test
 DISCRETE_ENGINES = ("G2", "G2-kernel")
-ENGINE_NAMES = ("S", "E", "S-kernel", "S-grid", "L1-dense", "auto") + DISCRETE_ENGINES
-#: engines of the reference still to port → the ROADMAP item that ports them
-NOT_PORTED = {"scan": "ROADMAP Queue 1 item 9 (the batch subsystem)"}
-_CANON = {name.lower(): name for name in ENGINE_NAMES + tuple(NOT_PORTED)}
+ENGINE_NAMES = ("S", "E", "S-kernel", "S-grid", "L1-dense", "auto", "scan") + DISCRETE_ENGINES
+#: engines that take over the whole run (level loop included) instead of
+#: a level; pc_from_corr dispatches them before its level loop
+WHOLE_RUN_ENGINES = ("scan",)
+_CANON = {name.lower(): name for name in ENGINE_NAMES}
 #: generic names → the G² engines, under a discrete test
 _DISCRETE_REMAP = {"S": "G2", "E": "G2", "auto": "G2-kernel", "S-kernel": "G2-kernel",
                    "G2": "G2", "G2-kernel": "G2-kernel"}
+
+
+def is_whole_run(engine) -> bool:
+    """True when the engine name replaces pc_from_corr's host level loop
+    (only "scan")."""
+    return not callable(engine) and str(engine).lower() in (
+        name.lower() for name in WHOLE_RUN_ENGINES)
 
 
 def resolve(engine, ell: int, test=None) -> str:
@@ -54,8 +65,10 @@ def resolve(engine, ell: int, test=None) -> str:
     name = _CANON.get(str(engine).lower())
     if name is None:
         raise ValueError(f"unknown engine {engine!r}; the port runs {ENGINE_NAMES}")
-    if name == "scan":
-        raise ValueError(f"engine 'scan' is not ported yet: {NOT_PORTED['scan']}")
+    if name in WHOLE_RUN_ENGINES:
+        raise ValueError(
+            f"{name!r} is a whole-run engine (batch/scan_pc.py); it is dispatched by "
+            "pc_from_corr before the level loop and cannot be selected per level")
     if getattr(test, "kind", "gaussian") == "discrete":
         if name not in _DISCRETE_REMAP:
             raise ValueError(
@@ -122,6 +135,24 @@ def run_level(c, adj, sep, ell: int, tau: float, engine="auto",
                                    chunk_fn_e=chunk_fn_e, pipeline_depth=pipeline_depth, **kw)
     st["engine"] = name
     return adj, sep, st
+
+
+def batch_run(cs, m, *, mesh=None, level_sync: bool = False, **kw):
+    """A many-graph workload through the whole-run "scan" engine.
+
+    cs: (B, n, n) float32 correlation matrices; m: the sample count behind
+    them (it sets the Fisher-z thresholds). ``level_sync=True`` runs
+    ``scan_levels_batch`` (one host sync a level for the batch, tight
+    widths found on the fly) and returns (ScanResult, schedule); otherwise
+    ``pc_scan_batch`` (no level syncs) returns a ScanResult with a leading
+    B axis. Both give the same results, equal to the single-graph engines
+    up to the static level cap whenever ``ok`` is True. ``mesh`` must be
+    None (multi-device is ROADMAP Queue 1 item 12)."""
+    from repro_torch.batch.scan_pc import pc_scan_batch, scan_levels_batch
+
+    if level_sync:
+        return scan_levels_batch(cs, m, mesh=mesh, **kw)
+    return pc_scan_batch(cs, m, mesh=mesh, **kw)
 
 
 def _run_level_dense_l1(c, adj, sep, tau, rank_dtype):

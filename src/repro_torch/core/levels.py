@@ -246,19 +246,20 @@ def _inv_spd(m, jitter: float = DEFAULT_JITTER):
     return torch.linalg.inv_ex(m)[0]
 
 
-def _set_inverse(m2, ell: int):
+def _set_inverse(m2, ell: int, jitter: float = DEFAULT_JITTER):
     """The per-set "inverse" of the S and E engines: 1/x at ℓ = 1."""
     if ell == 1:
         return 1.0 / torch.clamp(m2, min=1e-8)
-    return _inv_spd(m2)
+    return _inv_spd(m2, jitter)
 
 
-def ci_sweep(m2, ci_s, cj_s, cij, mask, tau, *, ell: int):
+def ci_sweep(m2, ci_s, cj_s, cij, mask, tau, *, ell: int, jitter: float = DEFAULT_JITTER):
     """The cuPC-S CI math on a gathered chunk: per-set inverse and shared
     vectors, then the neighbour sweep as einsums. Returns independence ∧
-    mask, (n_l, T, n′) bool."""
+    mask, (n_l, T, n′) bool. ``jitter`` scales the Tikhonov term of the
+    ℓ ≥ 2 inverses (the reference's ``ci_sweep`` parameter)."""
     _require_fp32_matmul(m2)
-    g = _set_inverse(m2, ell)
+    g = _set_inverse(m2, ell, jitter)
     u_i = torch.einsum("ntab,ntb->nta", g, ci_s)
     var_i = 1.0 - torch.einsum("nta,nta->nt", ci_s, u_i)
     num = cij - torch.einsum("ntpl,ntl->ntp", cj_s, u_i)
@@ -272,15 +273,17 @@ def _chunk_ranks(t0, n_chunk: int):
     return t0 + torch.arange(n_chunk, dtype=t0.dtype, device=t0.device)
 
 
-def chunk_s(c, adj, sep, compact, counts, t0, tau, *, ell: int, n_chunk: int, n_max: int):
+def chunk_s(c, adj, sep, compact, counts, t0, tau, *, ell: int, n_chunk: int, n_max: int,
+            jitter: float = DEFAULT_JITTER):
     """Combo-ranks [t0, t0 + n_chunk) of every row, cuPC-S style; returns
     the updated (adj, sep)."""
     winners = chunk_s_tests(c, adj, compact, counts, t0, tau, ell=ell, n_chunk=n_chunk,
-                            n_max=n_max)
+                            n_max=n_max, jitter=jitter)
     return chunk_s_commit(adj, sep, compact, *winners, ell=ell)
 
 
-def chunk_s_tests(c, adj, compact, counts, t0, tau, *, ell: int, n_chunk: int, n_max: int):
+def chunk_s_tests(c, adj, compact, counts, t0, tau, *, ell: int, n_chunk: int, n_max: int,
+                  jitter: float = DEFAULT_JITTER):
     """The tests half of ``chunk_s``: (t_win, removed_slot, s_win) of ranks
     [t0, t0 + n_chunk), not committed. ``adj`` only masks which cells may
     claim a removal, so a snapshot that lags the commits adds claims on
@@ -290,7 +293,8 @@ def chunk_s_tests(c, adj, compact, counts, t0, tau, *, ell: int, n_chunk: int, n
     ranks = _chunk_ranks(t0, n_chunk)
     m2, ci_s, cj_s, cij, mask, s_ids = gather_s(c, adj, compact, counts, rows, ranks,
                                                 ell=ell, n_max=n_max)
-    return _winners(ci_sweep(m2, ci_s, cj_s, cij, mask, tau, ell=ell), ranks, s_ids)
+    return _winners(ci_sweep(m2, ci_s, cj_s, cij, mask, tau, ell=ell, jitter=jitter), ranks,
+                    s_ids)
 
 
 def chunk_s_commit(adj, sep, compact, t_win, removed_slot, s_win, *, ell: int):
@@ -431,18 +435,21 @@ def commit_dense_l1(adj, sep, kwin, rank_dtype: torch.dtype = torch.int32):
 
 
 # ------------------------------------------------------------ discrete chunk
-def g2_worklist(stats, adj, compact, counts, ranks, *, ell: int, n_max: int, r: int):
+def g2_worklist(stats, adj, compact, counts, ranks, *, ell: int, n_max: int, r: int,
+                sets=None):
     """The G² worklist of combo-ranks ``ranks`` of every row: (jc (n·T·n′,
     m) int32 cell-major joint codes, dof (n, T, n′) float32, mask (n, T, n′),
     s_ids (n, T, ℓ)). The set plan and validity mask are the Gaussian
     engines' (``plan_sets``, ``_set_mask``), so a (row, rank, slot) cell
-    names the same test in every engine."""
+    names the same test in every engine. ``sets`` takes ``plan_sets``'s
+    (s_ids, valid_set) of these ranks when a caller unranked them already."""
     codes, arities = stats
     n = adj.shape[0]
     mm = codes.shape[0]
     n_chunk = ranks.shape[0]
     rows = torch.arange(n, dtype=torch.int32, device=adj.device)
-    s_ids, valid_set = plan_sets(compact, counts, ranks, ell=ell, n_max=n_max, n=n)
+    s_ids, valid_set = sets if sets is not None else plan_sets(compact, counts, ranks, ell=ell,
+                                                               n_max=n_max, n=n)
     mask = _set_mask(adj, compact, rows, s_ids, valid_set, n)
     j_ids = torch.clamp(compact, 0, n - 1).long()
     codes_t = codes.T.contiguous()  # (n, m)
@@ -461,15 +468,16 @@ def g2_worklist(stats, adj, compact, counts, ranks, *, ell: int, n_max: int, r: 
 
 
 def chunk_g2(stats, adj, sep, compact, counts, t0, alpha, *, ell: int, n_chunk: int,
-             n_max: int, r: int, gsq_fn):
+             n_max: int, r: int, gsq_fn, sets=None):
     """Combo-ranks [t0, t0 + n_chunk) of every row under the discrete G²
     test, with ``run_level``'s chunk contract (``cit.DiscreteStats`` in the
     C slot, α in the τ slot): G² per cell through ``gsq_fn`` (cell-major
     codes → (B,) float32), independence where chi2.sf(G², dof) ≥ α, then
-    the engines' (rank, endpoint-order) commit. Returns (adj, sep)."""
+    the engines' (rank, endpoint-order) commit. Returns (adj, sep).
+    ``sets``: the chunk's unranked sets, as ``g2_worklist`` takes them."""
     ranks = _chunk_ranks(t0, n_chunk)
     jc, dof, mask, s_ids = g2_worklist(stats, adj, compact, counts, ranks, ell=ell,
-                                       n_max=n_max, r=r)
+                                       n_max=n_max, r=r, sets=sets)
     g2 = gsq_fn(jc, r=r, q=r**ell).reshape(dof.shape)
     del jc
     indep = chi2_sf_f32(g2, dof) >= _f32(alpha)  # the boundary counts as independent

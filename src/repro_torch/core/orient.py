@@ -145,3 +145,10 @@ def meek_rules(d: torch.Tensor, max_iter: int | None = None) -> torch.Tensor:
 def cpdag_from_skeleton(adj: torch.Tensor, sep: torch.Tensor) -> torch.Tensor:
     """v-structures, then the Meek closure → the CPDAG digraph."""
     return meek_rules(orient_v_structures(adj, sep))
+
+
+def cpdag_from_membership(adj: torch.Tensor, in_sep: torch.Tensor) -> torch.Tensor:
+    """The CPDAG from a membership tensor in_sep (n, n, n) in place of
+    sepset id lists: the bootstrap ensemble's aggregated skeleton and voted
+    sepsets."""
+    return meek_rules(orient_v_structures_membership(adj, in_sep))

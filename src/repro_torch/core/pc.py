@@ -15,6 +15,10 @@ runs ℓ = 1 on the dense level-1 kernel and ℓ ≥ 2 on chunked cuPC-S (the
 fused skernel, one launch a chunk). Discrete: every level on the G²
 worklist through the gsq kernel. Then orientation to the CPDAG. Results come back
 as numpy arrays in the reference's dtypes.
+
+engine="scan" replaces the host level loop with the fixed-shape batch
+path (``batch/scan_pc.py``): the same results up to its static level cap,
+and on the card one CUDA graph for the whole skeleton phase.
 """
 from __future__ import annotations
 
@@ -98,19 +102,25 @@ def pc_from_corr(c, m: int, alpha: float = 0.01, engine="auto",
             V.validate_corr(c, m, max_level=max_level)
         c = _tensor(c).to(dev, torch.float32).contiguous()
         lmax = min(max_level if max_level is not None else MAX_LEVEL, sepset_depth)
-        run = _pc_run_host_loop(c, test, engine=engine, lmax=lmax, sepset_depth=sepset_depth,
-                                cell_budget=cell_budget, orient=orient, chunk_fn_s=chunk_fn_s,
-                                chunk_fn_e=chunk_fn_e, tracer=tracer,
-                                rank_dtype=D.rank_dtype(wide_ranks), bucket=bucket,
-                                pipeline_depth=pipeline_depth)
+        if E.is_whole_run(engine):
+            run = _pc_run_scan(c, m, alpha=alpha, max_level=max_level,
+                               sepset_depth=sepset_depth, cell_budget=cell_budget,
+                               orient=orient, tracer=tracer)
+        else:
+            run = _pc_run_host_loop(c, test, engine=engine, lmax=lmax,
+                                    sepset_depth=sepset_depth, cell_budget=cell_budget,
+                                    orient=orient, chunk_fn_s=chunk_fn_s,
+                                    chunk_fn_e=chunk_fn_e, tracer=tracer,
+                                    rank_dtype=D.rank_dtype(wide_ranks), bucket=bucket,
+                                    pipeline_depth=pipeline_depth)
     run.timings_s = tracer.timings()
     return run
 
 
 def _check_engine(engine, test):
     """Refuse an engine name the test cannot run before any work starts (a
-    callable is checked level by level)."""
-    if not callable(engine):
+    callable is checked level by level, a whole-run engine by its path)."""
+    if not callable(engine) and not E.is_whole_run(engine):
         E.resolve(engine, 1, test)
 
 
@@ -152,6 +162,50 @@ def _pc_run_host_loop(stats, test, *, engine, lmax, sepset_depth, cell_budget, o
                  sepsets=sep.cpu().numpy(), levels_run=ell - 1, level_stats=stats_out)
 
 
+def _pc_run_scan(stats, m, *, alpha, max_level, sepset_depth, cell_budget, orient, tracer,
+                 test=None):
+    """engine="scan": the whole run as the fixed-shape program of
+    ``batch/scan_pc.py``, in the PCRun contract.
+
+    max_level=None uses the scan's static DEFAULT_MAX_LEVEL (warned when
+    ``sepset_depth`` allows deeper levels); results equal the host loop's
+    at the same cap. levels_run counts the levels that had work (the host
+    driver's stopping rule on the recorded per-level max degrees), not
+    the cap."""
+    import warnings
+
+    from repro_torch.batch.scan_pc import DEFAULT_MAX_LEVEL, pc_scan
+
+    if max_level is None and sepset_depth > DEFAULT_MAX_LEVEL:
+        warnings.warn(
+            f"engine='scan' runs a STATIC level cap of {DEFAULT_MAX_LEVEL} "
+            "by default, while the host-loop engines iterate until "
+            "convergence — on deep graphs the skeletons differ. Pass "
+            "max_level explicitly to choose the cap (and silence this).",
+            stacklevel=4,
+        )
+    lmax = min(DEFAULT_MAX_LEVEL if max_level is None else max_level, sepset_depth)
+    dev = stats.codes.device if test is not None else stats.device
+    with tracer.span("scan", max_level=lmax) as sp:
+        res = pc_scan(stats, m, alpha=alpha, max_level=lmax, sepset_depth=sepset_depth,
+                      cell_budget=cell_budget, orient=orient, test=test, device=dev)
+        sp.sync(res.cpdag)
+    # the host driver stops at the first level with max_deg - 1 < ell
+    degs = res.max_degs.cpu().numpy()
+    levels_run = 0
+    for ell in range(1, lmax + 1):
+        if degs[ell - 1] - 1 < ell:
+            break
+        levels_run = ell
+    return PCRun(
+        adj=res.adj.cpu().numpy(), cpdag=res.cpdag.cpu().numpy(),
+        sepsets=res.sepsets.cpu().numpy(), levels_run=levels_run,
+        level_stats=[{"level": ell, "engine": "scan", "skipped": ell > levels_run,
+                      "npr": int(degs[ell - 1]), "max_level_static": lmax}
+                     for ell in range(1, lmax + 1)],
+    )
+
+
 def _pc_discrete(x, test, *, engine="auto", max_level=None, sepset_depth=SEPSET_DEPTH,
                  cell_budget=E.DEFAULT_CELL_BUDGET, orient=True, chunk_fn_s=None,
                  chunk_fn_e=None, validate=True, device=None, wide_ranks=False, bucket=True,
@@ -174,11 +228,22 @@ def _pc_discrete(x, test, *, engine="auto", max_level=None, sepset_depth=SEPSET_
         else:
             lmax = min(max_level, sepset_depth)
         test.check_level(lmax)
-        run = _pc_run_host_loop(stats, test, engine=engine, lmax=lmax, sepset_depth=sepset_depth,
-                                cell_budget=cell_budget, orient=orient, chunk_fn_s=chunk_fn_s,
-                                chunk_fn_e=chunk_fn_e, tracer=tracer,
-                                rank_dtype=D.rank_dtype(wide_ranks), bucket=bucket,
-                                pipeline_depth=pipeline_depth)
+        if E.is_whole_run(engine):
+            if max_level is None:
+                # scan's static default cap, still bounded by the table cap
+                from repro_torch.batch.scan_pc import DEFAULT_MAX_LEVEL
+
+                lmax = min(lmax, DEFAULT_MAX_LEVEL)
+            run = _pc_run_scan(stats, test.m, alpha=test.alpha, max_level=lmax,
+                               sepset_depth=sepset_depth, cell_budget=cell_budget,
+                               orient=orient, tracer=tracer, test=test)
+        else:
+            run = _pc_run_host_loop(stats, test, engine=engine, lmax=lmax,
+                                    sepset_depth=sepset_depth, cell_budget=cell_budget,
+                                    orient=orient, chunk_fn_s=chunk_fn_s,
+                                    chunk_fn_e=chunk_fn_e, tracer=tracer,
+                                    rank_dtype=D.rank_dtype(wide_ranks), bucket=bucket,
+                                    pipeline_depth=pipeline_depth)
     run.timings_s = tracer.timings()
     return run
 

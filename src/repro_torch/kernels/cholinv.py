@@ -24,12 +24,12 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
-def cholinv_plain(m2: torch.Tensor, ci: torch.Tensor):
+def cholinv_plain(m2: torch.Tensor, ci: torch.Tensor, jitter: float = JITTER):
     """Plain version: the unrolled Cholesky → L⁻¹ → Gram recurrence of the
     reference kernel, one elementwise op over the batch per scalar step."""
     ell = m2.shape[-1]
     f32 = torch.float32
-    jit = torch.tensor(JITTER, dtype=f32, device=m2.device)
+    jit = torch.tensor(jitter, dtype=f32, device=m2.device)
     inv_l = torch.tensor(1.0 / ell, dtype=f32, device=m2.device)
     scale = m2[:, 0, 0]
     for i in range(1, ell):
@@ -76,9 +76,10 @@ def cholinv_plain(m2: torch.Tensor, ci: torch.Tensor):
     return g, torch.stack(u, dim=-1), var
 
 
-def cholinv(m2: torch.Tensor, ci: torch.Tensor):
-    """m2: (B, ℓ, ℓ) fp32 SPD blocks, ci: (B, ℓ) fp32 → (g, u, var).
-    A CUDA tensor runs the hand kernel; a CPU tensor the plain version."""
+def cholinv(m2: torch.Tensor, ci: torch.Tensor, jitter: float = JITTER):
+    """m2: (B, ℓ, ℓ) fp32 SPD blocks, ci: (B, ℓ) fp32 → (g, u, var), with
+    the Tikhonov term ``jitter`` × the block's mean diagonal. A CUDA
+    tensor runs the hand kernel; a CPU tensor the plain version."""
     b, ell = ci.shape
     if m2.shape != (b, ell, ell) or m2.dtype != torch.float32 or ci.dtype != torch.float32:
         raise ValueError(f"expected m2 (B, ℓ, ℓ) and ci (B, ℓ) float32, got "
@@ -86,12 +87,12 @@ def cholinv(m2: torch.Tensor, ci: torch.Tensor):
     if not 1 <= ell <= MAX_ELL:
         raise ValueError(f"ℓ must lie in 1..{MAX_ELL}, got {ell}")
     if m2.device.type == "cpu":
-        return cholinv_plain(m2, ci)
+        return cholinv_plain(m2, ci, jitter)
     build.require_cuda(m2, ci)
     g = torch.empty_like(m2)
     u = torch.empty_like(ci)
     var = torch.empty((b,), dtype=torch.float32, device=m2.device)
     if b:
         build.launch("cholinv", "repro_cholinv", m2.device, m2.data_ptr(), ci.data_ptr(),
-                     g.data_ptr(), u.data_ptr(), var.data_ptr(), b, ell, JITTER)
+                     g.data_ptr(), u.data_ptr(), var.data_ptr(), b, ell, float(jitter))
     return g, u, var

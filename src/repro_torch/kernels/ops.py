@@ -134,15 +134,17 @@ def chunk_s_grid(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max, 
                            counts, t0, tau, ell=ell, n_chunk=n_chunk, n_max=n_max)
 
 
-def chunk_s_kernel(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max):
+def chunk_s_kernel(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max,
+                   jitter: float = _cholinv.JITTER):
     """Same contract as the reference ``chunk_s_kernel``: combo-ranks
     [t0, t0 + n_chunk) of every row, tested by cholinv's and cisweep's
     arithmetic and committed; returns the updated (adj, sep). On the card
     one fused skernel launch unranks, inverts, sweeps and keeps the
     winners (no ``gather_s``); on the CPU its plain version gathers and
-    runs the plain cholinv and cisweep."""
-    return _commit_winners(_skernel.skernel_fused, c, adj, sep, compact, counts, t0, tau,
-                           ell=ell, n_chunk=n_chunk, n_max=n_max)
+    runs the plain cholinv and cisweep. ``jitter`` scales the Tikhonov
+    term of the per-set inverse."""
+    return _commit_winners(functools.partial(_skernel.skernel_fused, jitter=jitter), c, adj,
+                           sep, compact, counts, t0, tau, ell=ell, n_chunk=n_chunk, n_max=n_max)
 
 
 def chunk_s_two_launch(c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max):

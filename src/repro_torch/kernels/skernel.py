@@ -19,6 +19,8 @@ composition through the kernels' plain versions.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import build
@@ -48,29 +50,33 @@ def _two_step(c, adj, compact, counts, rows, t0, tau, *, ell, n_chunk, n_max, in
 
 
 def skernel_plain(c, adj, compact, counts, rows, t0, tau: float, *, ell: int, n_chunk: int,
-                  n_max: int):
+                  n_max: int, jitter: float = JITTER):
     """Plain version: ``levels.plan_sets`` → ``levels.gather_sets`` →
     ``cholinv_plain`` → ``cisweep_plain`` → ``levels._winners``."""
     return _two_step(c, adj, compact, counts, rows, t0, tau, ell=ell, n_chunk=n_chunk,
-                     n_max=n_max, inverse=_cholinv.cholinv_plain, sweep=_cisweep.cisweep_plain)
+                     n_max=n_max,
+                     inverse=functools.partial(_cholinv.cholinv_plain, jitter=jitter),
+                     sweep=_cisweep.cisweep_plain)
 
 
 def skernel_two_launch(c, adj, compact, counts, rows, t0, tau: float, *, ell: int,
-                       n_chunk: int, n_max: int):
+                       n_chunk: int, n_max: int, jitter: float = JITTER):
     """The reference's two-kernel chunk on the same inputs: the gather, the
     gathered cholinv and cisweep kernels (their plain versions on CPU
     tensors) and ``levels._winners``; what the fused kernel is held to."""
     return _two_step(c, adj, compact, counts, rows, t0, tau, ell=ell, n_chunk=n_chunk,
-                     n_max=n_max, inverse=_cholinv.cholinv, sweep=_cisweep.cisweep)
+                     n_max=n_max, inverse=functools.partial(_cholinv.cholinv, jitter=jitter),
+                     sweep=_cisweep.cisweep)
 
 
 def skernel_fused(c, adj, compact, counts, rows, t0, tau: float, *, ell: int, n_chunk: int,
-                  n_max: int):
+                  n_max: int, jitter: float = JITTER):
     """Ranks [t0, t0 + n_chunk) of the rows ``rows`` (n_l,) int32 read
     straight from C: c (n, n) float32, adj (n, n) bool or uint8, compact
     (n_l, n′) and counts (n_l,) int32, t0 a 0-d int32 or int64 tensor,
-    n_max the unrank bound (``levels.plan_sets``'s). A CUDA tensor runs
-    the hand kernel, one launch; a CPU tensor the plain version."""
+    n_max the unrank bound (``levels.plan_sets``'s), ``jitter`` the
+    Tikhonov scale of the per-set inverse. A CUDA tensor runs the hand
+    kernel, one launch; a CPU tensor the plain version."""
     from repro_torch.core import levels as L
 
     n = c.shape[0]
@@ -90,9 +96,9 @@ def skernel_fused(c, adj, compact, counts, rows, t0, tau: float, *, ell: int, n_
         raise ValueError(f"ℓ must lie in 1..{MAX_ELL}, got {ell}")
     if n_chunk >= SENTINEL:
         raise ValueError(f"a launch holds at most {SENTINEL - 1} ranks, got {n_chunk}")
-    kw = dict(ell=ell, n_chunk=n_chunk, n_max=n_max)
     if c.device.type == "cpu":
-        return skernel_plain(c, adj, compact, counts, rows, t0, tau, **kw)
+        return skernel_plain(c, adj, compact, counts, rows, t0, tau, ell=ell, n_chunk=n_chunk,
+                             n_max=n_max, jitter=jitter)
     adj8 = adj.view(torch.uint8) if adj.dtype == torch.bool else adj
     table = L._jtable(n_max, torch.int64, c.device)
     build.require_cuda(c, adj8, compact, counts, rows, t0, table)
@@ -103,5 +109,5 @@ def skernel_fused(c, adj, compact, counts, rows, t0, tau: float, *, ell: int, n_
                      rows.data_ptr(), compact.data_ptr(), counts.data_ptr(), table.data_ptr(),
                      table.shape[1], t0.data_ptr(), int(t0.dtype == torch.int64),
                      t_loc.data_ptr(), s_win.data_ptr(), n, n_l, n_chunk, npr, n_max, ell,
-                     float(tau), JITTER)
+                     float(tau), float(jitter))
     return t_loc, s_win

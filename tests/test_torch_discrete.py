@@ -277,8 +277,9 @@ def test_engine_resolution_under_the_discrete_test():
     for eng in ("G2", "G2-kernel"):
         with pytest.raises(ValueError, match="discrete"):
             engines.resolve(eng, 1)
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        engines.resolve("scan", 1, d)
+    for resolve, test in ((engines.resolve, d), (jengines.resolve, jcit.DiscreteCITest(m=200, r=3))):
+        with pytest.raises(ValueError, match="whole-run engine"):
+            resolve("scan", 1, test)
 
 
 # -------------------------------------------------------------- end to end

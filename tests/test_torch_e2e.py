@@ -18,7 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core.cit import correlation_from_samples  # noqa: E402
 from repro.core.cit import threshold as jthreshold  # noqa: E402
 from repro.core import engines as jengines  # noqa: E402
-from repro.core.pc import pc_from_corr as jpc_from_corr  # noqa: E402
+from repro.core.pc import pc as jpc, pc_from_corr as jpc_from_corr  # noqa: E402
 from repro.data.synthetic_dag import sample_gaussian_dag  # noqa: E402
 from repro_torch import pc, pc_from_corr  # noqa: E402
 from repro_torch.core import engines  # noqa: E402
@@ -105,10 +105,14 @@ def test_validation_and_engine_errors():
     for name in ("S", "E", "S-kernel", "S-grid", "L1-dense", "auto"):
         for ell in range(1, 5):
             assert engines.resolve(name, ell) == jengines.resolve(name, ell), (name, ell)
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        pc(x, device="cpu", engine="scan")
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        pc((x > 0).astype(np.int64), device="cpu", test="discrete", engine="scan")
+    # "scan" is a whole-run engine on both routes, with the reference's results
+    assert engines.is_whole_run("scan") and jengines.is_whole_run("scan")
+    for xs, kw in ((x, {}), ((x > 0).astype(np.int64), dict(test="discrete"))):
+        got = pc(xs, device="cpu", engine="scan", max_level=2, **kw)
+        want = jpc(xs, engine="scan", max_level=2, **kw)
+        np.testing.assert_array_equal(got.adj, want.adj)
+        np.testing.assert_array_equal(got.sepsets, want.sepsets)
+        assert got.level_stats == want.level_stats
     with pytest.raises(ValueError, match="raw samples"):
         pc_from_corr(np.eye(4, dtype=np.float32), 200, device="cpu", test="discrete")
     with pytest.raises(ValueError, match="unknown engine"):

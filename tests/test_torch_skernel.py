@@ -270,6 +270,30 @@ def test_cuda_skernel_bitwise_two_launch(monkeypatch, ell, n, deg, t0, rank_dtyp
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("jitter", [1e-3, 5e-2])
+@pytest.mark.parametrize("ell,n,deg", [(2, 133, 20), (3, 61, 40)])
+def test_cuda_skernel_jitter_bitwise_two_launch(ell, n, deg, jitter):
+    """A jitter other than the default reaches the fused kernel as it
+    reaches cholinv: bitwise equal to the two-launch chunk at the same
+    jitter, and to its plain version at that jitter outside the τ band."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the skernel kernel has no CPU mode")
+    dev = torch.device("cuda")
+    c, alive, comp, counts, npr_b = _cuda_level(n, deg, ell, dev)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    args = (c, alive, comp, counts, rows, torch.tensor(0, dtype=torch.int32, device=dev))
+    tau = threshold(60, ell, 0.05)
+    kw = dict(ell=ell, n_chunk=200, n_max=npr_b, jitter=jitter)
+    got = skernel.skernel_fused(*args, tau, **kw)
+    two = skernel.skernel_two_launch(*args, tau, **kw)
+    assert torch.equal(got[0], two[0]) and torch.equal(got[1], two[1])
+    plain = [tuple(a.cpu() for a in skernel.skernel_plain(*args, tau + d, **kw))
+             for d in (0.0, -BAND, BAND)]
+    n_diff, outside, _ = _band_counts(tuple(a.cpu() for a in got), *plain)
+    assert outside == 0 and n_diff <= 2, (ell, jitter, n_diff, outside)
+
+
+@pytest.mark.cuda
 def test_cuda_s_kernel_level_one_launch_a_chunk(monkeypatch):
     """A level of the "S-kernel" engine on the card, several chunks: one
     skernel launch a chunk, no cholinv or cisweep launch and no unrank or
