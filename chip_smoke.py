@@ -88,7 +88,30 @@ Phases, each of which exits non-zero on failure:
    engine="scan")`` on the PIGS stand-in, bitwise the "G2-kernel" host
    loop at the same cap (2 where 3 levels would sweep more than 10 000
    steps), gsq launched. Beside each time, the card's name and power
-   limit.
+   limit;
+7. serving and the launchers (``repro_torch.launch``, ``repro_torch.serve``):
+   (a) ``python -m repro_torch.launch.pc_run --dataset NCI-60`` in a
+   subprocess, its edges and levels phase 3's "auto"'s; ``pc_run.main``
+   with ``--batch 64`` on the batch cell's lanes, its schedule that of
+   ``plan_schedule`` on their C, corr once a lane; with ``--bootstrap 8
+   --dataset NCI-60 --journal``, its stable edges ``bootstrap_pc``'s and
+   every span in the journal with its duration; (b) ``pc_serve``'s stream
+   through ``PCService`` on a MonotonicClock at the batch cell's shape
+   (64 requests alternating n = 96 and 48, m = 3000, density 0.015,
+   α = 0.01, one α sweep, cap 3, slots of 8, Poisson arrivals at 50/s):
+   no rejection or dead letter, every delivered graph bitwise a solo
+   ``pc_scan`` on its C at its α, corr once a request; requests/s, latency
+   p50/p99, the queue-wait/dispatch/assembly breakdown, the programs
+   recorded and evicted, peak memory; then the §5.6 instance as one
+   request (its first call predicted from phase 3's degrees and phase 6
+   (b)'s seconds a recorded step; cap 2, cap 1 where that prediction is
+   over a minute), bitwise the host loop's "S-kernel"; (c) the same
+   stream under ``pc_serve --faults`` (ManualClock): req-2 rejected,
+   req-4 delivered wider, req-6 retried for corruption, req-8
+   dead-lettered, the event sequence equal to the port's CPU run of the
+   stream on the card's C; a degrade run to the stable-ref rung, its
+   skeleton explained against the solo scan; (d) a GET of ``pc_serve``'s
+   /metrics endpoint on a free localhost port.
 
 The last two lines are a ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -353,10 +376,11 @@ def certify(run, c64, m, alpha, threshold):
     return counts
 
 
-def explain_diffs(a, b, c64, m, alpha, threshold, sepsets=True):
+def explain_diffs(a, b, c64, m, alpha, threshold, sepsets=True, empty=False):
     """Edges where two runs differ in adjacency or (with ``sepsets``) in
     sepset; each must be explained by a CI test of either run's sepset
-    lying within the band (plus its fp32 error bound) of τ."""
+    lying within the band (plus its fp32 error bound) of τ. ``empty``
+    also explains a level-0 removal (the -2 sentinel) by its test."""
     import numpy as np
 
     n = a.adj.shape[0]
@@ -369,7 +393,7 @@ def explain_diffs(a, b, c64, m, alpha, threshold, sepsets=True):
         near = False
         for run in (a, b):
             s = run.sepsets[i, j]
-            if run.adj[i, j] or s[0] < 0:
+            if run.adj[i, j] or (s[0] < 0 and not (empty and s[0] == -2)):
                 continue
             ids = s[s >= 0].astype(np.int64)
             z, err = z_of(*gather_tests(c64, np.array([i]), np.array([j]), ids[None, :]))
@@ -810,6 +834,7 @@ def section56(torch, dev):
             print(f"  certificate ℓ={ell}: {cnt['checked']} pass, {cnt['band']} in the τ "
                   f"band, {cnt['fp32_undecidable']} within their fp32 bound "
                   f"({cnt['singular']} with a singular C[S,S])")
+    return runs["auto"]
 
 
 def main() -> int:
@@ -843,11 +868,12 @@ def main() -> int:
             print("  ptxas " + line.strip())
 
     rows, launches = {}, {}
-    gaussian(torch, rows, launches)
-    section56(torch, torch.device("cuda"))
+    auto = gaussian(torch, rows, launches)
+    auto56 = section56(torch, torch.device("cuda"))
     discrete(torch, rows, launches)
     card = smi.stdout.strip()
-    batch(torch, card)
+    boot = batch(torch, card)
+    serving(torch, card, auto, auto56, boot)
 
     sources = {"corr": ("src/repro_torch/csrc/corr.cu", "src/repro/kernels/corr.py:38"),
                "level0": ("src/repro_torch/csrc/level0.cu", "src/repro/kernels/level0.py:28"),
@@ -1129,6 +1155,7 @@ def gaussian(torch, rows, launches):
           "the fused and the two-launch S-kernel runs differ")
 
     nci60_engines(torch, x_np, run, c64, launches, dev)
+    return run
 
 
 def discrete(torch, rows, launches):
@@ -1369,8 +1396,10 @@ def batch(torch, card):
     nvidia-smi name and power limit printed beside each time."""
     from repro_torch.kernels import build
 
-    for part in (batch_many, batch_bootstrap, batch_discrete):
-        part(torch, card, build)
+    batch_many(torch, card, build)
+    boot = batch_bootstrap(torch, card, build)
+    batch_discrete(torch, card, build)
+    return boot
 
 
 def batch_many(torch, card, build):
@@ -1486,7 +1515,9 @@ def batch_many(torch, card, build):
 def batch_bootstrap(torch, card, build):
     """(b) ``bootstrap_pc`` on the NCI-60 stand-in (Table 1's shape), the
     level-synced path (one CUDA graph a level), run twice: the second run
-    replays every graph, and its counts are the path's."""
+    replays every graph, and its counts are the path's. Returns the first
+    call's seconds and the skernel steps it recorded (phase 7's model of a
+    first call)."""
     import numpy as np
 
     from repro_torch import pc_from_corr
@@ -1589,6 +1620,7 @@ def batch_bootstrap(torch, card, build):
     del member, cs, res
     capture.clear()
     torch.cuda.empty_cache()
+    return dict(first_s=first_s, steps=planned)
 
 
 def batch_discrete(torch, card, build):
@@ -1666,6 +1698,379 @@ def discrete_scan(torch, card, build, x_np, w, cap):
               f"the discrete scan differs from {name} at cap {cap}")
     capture.clear()
     return run_s
+
+
+# phase 7: pc_serve's stream at the reference's many-graph shape
+# (benchmarks/pc_batch.py:46-49, "sparse"): 64 requests alternating n = 96
+# and n = 48 (pc_serve's two bucket shapes), one α sweep, cap 3, slots of 8,
+# open-loop Poisson arrivals at 50 requests/s, seed 0
+SERVE_ARGV = ("--requests", "64", "--n", "96", "--m", "3000", "--density", "0.015",
+              "--alpha", "0.01", "--max-level", "3", "--slot-size", "8", "--rate", "50",
+              "--seed", "0")
+# the §5.6 request runs at cap 2 where its first call is predicted under
+# this many seconds, else at cap 1
+SERVE_S56_FIRST_S = 60.0
+
+
+def serving(torch, card, auto, auto56, boot):
+    """Phase 7: the launchers and ``PCService`` on the card. ``auto`` and
+    ``auto56`` are phase 3's "auto" runs on NCI-60 and §5.6, ``boot`` phase
+    6 (b)'s first call (its seconds and recorded steps)."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        serve_pc_run(torch, card, auto, tmp)
+        svc = serve_stream(torch, card)
+        serve_s56(torch, card, auto56, boot)
+        serve_faults(torch, card)
+        serve_scrape(svc)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def serve_pc_run(torch, card, auto, tmp):
+    """(a) ``pc_run``: NCI-60 in a subprocess, equal to phase 3's "auto";
+    ``--batch`` on the batch cell's lanes, its schedule ``plan_schedule``'s;
+    ``--bootstrap`` with a journal, equal to ``bootstrap_pc``."""
+    import os
+
+    from repro_torch import obs
+    from repro_torch.batch import capture, ensemble, scan_pc
+    from repro_torch.data.synthetic_dag import sample_gaussian_dag
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import pc_run
+
+    dev = torch.device("cuda")
+    out = tmp / "nci60.json"
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join(filter(None, [str(SRC), os.environ.get("PYTHONPATH")]))}
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.pc_run", "--dataset",
+                           "NCI-60", "--json", str(out)], env=env, cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=600)
+    secs = time.monotonic() - t0
+    check(proc.returncode == 0,
+          f"pc_run --dataset NCI-60 exited {proc.returncode}: {proc.stderr[-2000:]}")
+    rec = json.loads(out.read_text())
+    edges, levels = int(auto.adj.sum()) // 2, auto.levels_run
+    print(f"phase 7 (a) python -m repro_torch.launch.pc_run --dataset NCI-60 (a subprocess, "
+          f"{secs:.1f} s with its start-up): {rec['edges']} edges, {rec['levels']} levels, "
+          f"total_s {rec['total_s']:.3f}; phase 3's auto: {edges} edges, {levels} levels  "
+          f"[{card}]")
+    for line in proc.stdout.splitlines():
+        print("  | " + line)
+    check((rec["edges"], rec["levels"]) == (edges, levels),
+          f"pc_run NCI-60 gave {rec['edges']} edges in {rec['levels']} levels, phase 3's auto "
+          f"{edges} in {levels}")
+
+    cfg = BATCH
+    b, n, m, alpha, lmax = cfg["B"], cfg["n"], cfg["m"], cfg["alpha"], cfg["max_level"]
+    xs = [torch.tensor(sample_gaussian_dag(n, m, cfg["density"], seed=cfg["seed"] + k)[0],
+                       dtype=torch.float32, device=dev) for k in range(b)]
+    build.reset_launches()
+    ops.correlation(xs[0])
+    per_corr = build.LAUNCHES["corr"]
+    argv = ["--batch", str(b), "--n", str(n), "--m", str(m), "--d", str(cfg["density"]),
+            "--max-level", str(lmax), "--seed", str(cfg["seed"]), "--json", str(tmp / "b.json")]
+    capture.clear()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.monotonic()
+    check(pc_run.main(argv) == 0, "pc_run --batch failed")
+    secs = spent(torch, t0)
+    got = dict(build.LAUNCHES)
+    rec = json.loads((tmp / "b.json").read_text())
+    cs = torch.stack([ops.correlation(x) for x in xs])
+    schedule = scan_pc.plan_schedule(cs, m, alpha=alpha, max_level=lmax, device=dev)
+    print(f"  pc_run {' '.join(argv[:-2])}: {secs:.3f} s in all, steady {rec['steady_s']:.4f} s "
+          f"= {rec['graphs_per_s']:.1f} graphs/s, schedule {rec['schedule']} (plan_schedule on "
+          f"the lanes' C: {list(schedule)}), launches {json.dumps(nonzero(got))}  [{card}]")
+    check(rec["schedule"] == list(schedule),
+          f"pc_run --batch planned {rec['schedule']}, plan_schedule {list(schedule)}")
+    check(got["corr"] == b * per_corr and got["level0"] > 0 and got["skernel"] > 0,
+          f"pc_run --batch launched {got}: not corr {per_corr} a lane, level0 and skernel")
+    capture.clear()
+
+    x_np, _ = sample_gaussian_dag(NCI60["n"], NCI60["m"], NCI60["density"], seed=NCI60["seed"])
+    journal = tmp / "boot.jsonl"
+    argv = ["--bootstrap", str(BOOT_REPLICATES), "--dataset", "NCI-60", "--journal",
+            str(journal), "--json", str(tmp / "boot.json")]
+    t0 = time.monotonic()
+    check(pc_run.main(argv) == 0, "pc_run --bootstrap failed")
+    secs = spent(torch, t0)
+    rec = json.loads((tmp / "boot.json").read_text())
+    ref = ensemble.bootstrap_pc(x_np, n_boot=BOOT_REPLICATES, seed=0, device=dev)
+    phases = obs.phase_summary(obs.read_journal(str(journal)), depth=1)
+    spans = {k: v for k, v in rec["timings_s"].items() if k != "total"}
+    print(f"  pc_run {' '.join(argv[:4])} --journal: {secs:.3f} s with its recordings, "
+          f"{rec['stable_edges']} stable edges (bootstrap_pc(x, n_boot={BOOT_REPLICATES}, "
+          f"seed=0): {len(ref.stable_edges())}), spans {json.dumps(spans)}, journal "
+          f"{json.dumps(phases)}, total_s {rec['total_s']:.3f}  [{card}]")
+    check(rec["stable_edges"] == len(ref.stable_edges()),
+          f"pc_run --bootstrap kept {rec['stable_edges']} stable edges, bootstrap_pc "
+          f"{len(ref.stable_edges())}")
+    check(all(phases.get(k) == v for k, v in spans.items()),
+          f"the journal's phases {phases} are not the run's spans {spans}")
+    check(sum(phases.values()) <= rec["total_s"], "the journal's phases outlast total_s")
+    check(not obs.enabled(), "pc_run --journal left obs enabled")
+    capture.clear()
+    torch.cuda.empty_cache()
+
+
+def serve_lines(svc, rep, n_requests, total):
+    from repro_torch.launch import pc_serve
+
+    for line in pc_serve.summary(svc, rep, n_requests, total):
+        print("  | " + line)
+
+
+def recordings(log):
+    """What a capture log says: recordings by program name, seconds, nodes."""
+    by = {}
+    for name, secs, _nodes in log["recorded"]:
+        by[name] = by.get(name, 0) + 1
+    total = sum(secs for _, secs, _ in log["recorded"])
+    worst = max((secs for _, secs, _ in log["recorded"]), default=0.0)
+    return (f"{len(log['recorded'])} programs recorded {json.dumps(by)} in {total:.3f} s "
+            f"(longest {worst:.3f} s), {log['evicted']} evicted (MAX_PROGRAMS)")
+
+
+def serve_stream(torch, card):
+    """(b) The fault-free stream through ``pc_serve``'s arrival loop on a
+    MonotonicClock: every request one typed outcome, no rejection or dead
+    letter, every delivered graph bitwise a solo ``pc_scan`` on its C at
+    its α, corr once a request. Returns the service (for (d))."""
+    import numpy as np
+
+    from repro_torch.batch import capture, scan_pc
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import pc_serve
+
+    dev = torch.device("cuda")
+    args = pc_serve.parser().parse_args(list(SERVE_ARGV))
+    reqs = pc_serve.stream(args)
+    build.reset_launches()
+    ops.correlation(torch.tensor(reqs[1][1].x, device=dev))
+    per_corr = build.LAUNCHES["corr"]
+    capture.clear()
+    capture.reset_log()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    svc, rep, total = pc_serve.serve(pc_serve.make_service(args), reqs)
+    torch.cuda.synchronize()
+    got, log = dict(build.LAUNCHES), capture.log()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lats = rep.latencies()
+    brk = np.mean([(g.queue_wait_s, g.dispatch_s, g.assembly_s)
+                   for by in rep.delivered.values() for g in by.values()], axis=0)
+    print(f"phase 7 (b) PCService, pc_serve {' '.join(SERVE_ARGV)}: {len(reqs)} requests in "
+          f"{total:.3f} s = {len(rep.delivered) / total:.2f} requests/s, latency p50 "
+          f"{np.percentile(lats, 50):.4f} s p99 {np.percentile(lats, 99):.4f} s, mean "
+          f"queue-wait {brk[0]:.4f} / dispatch {brk[1]:.4f} / assembly {brk[2]:.6f} s, "
+          f"{rep.steps} dispatches; {recordings(log)}; launches {json.dumps(nonzero(got))}; "
+          f"peak memory {peak:.2f} GiB  [{card}]")
+    serve_lines(svc, rep, len(reqs), total)
+    check(not rep.rejections and not rep.dead_letters,
+          f"the fault-free stream rejected {list(rep.rejections)} or dead-lettered "
+          f"{[(d.rid, d.code) for d in rep.dead_letters]}")
+    for _, req in reqs:
+        want = set(range(len(req.alphas or (req.alpha,))))
+        check(set(rep.delivered.get(req.rid, {})) == want,
+              f"{req.rid} ended with lanes {sorted(rep.delivered.get(req.rid, {}))}, not {want}")
+    check(got["corr"] == per_corr * len(reqs) and got["level0"] > 0 and got["skernel"] > 0,
+          f"the stream launched {got}: not corr {per_corr} a request, level0 and skernel")
+
+    capture.reset_log()
+    t0 = time.monotonic()
+    for _, req in reqs:
+        c = ops.correlation(torch.tensor(req.x, device=dev)).cpu().numpy()
+        for lane, g in rep.delivered[req.rid].items():
+            solo = scan_pc.pc_scan(c, req.x.shape[0], alpha=g.alpha, max_level=req.max_level,
+                                   device=dev)
+            same = all(np.array_equal(getattr(g, f), getattr(solo, f).cpu().numpy())
+                       for f in ("adj", "sepsets", "cpdag"))
+            check(same and g.exact and bool(solo.ok),
+                  f"{req.rid} lane {lane} (tier {g.tier}) differs from its solo pc_scan")
+    print(f"  every delivered graph bitwise pc_scan(c, m, alpha, max_level=3) on its own C "
+          f"({spent(torch, t0):.3f} s; {recordings(capture.log())})")
+    return svc
+
+
+def serve_s56(torch, card, auto56, boot):
+    """The paper's §5.6 instance as one request: its first call predicted
+    from phase 3's per-level degrees and phase 6 (b)'s seconds a recorded
+    step, run at cap 2 (cap 1 when the prediction is over
+    ``SERVE_S56_FIRST_S``), bitwise the host loop's "S-kernel"."""
+    import numpy as np
+
+    from repro_torch import pc_from_corr
+    from repro_torch.batch import capture, scan_pc
+    from repro_torch.core import levels as L
+    from repro_torch.data.synthetic_dag import sample_gaussian_dag
+    from repro_torch.kernels import build, ops
+    from repro_torch.serve import PCService, Request, ServeConfig
+
+    cfg = S56
+    n, m, alpha = cfg["n"], cfg["m"], cfg["alpha"]
+    dev = torch.device("cuda")
+    npr = {st["level"]: st["npr"] for st in auto56.level_stats}
+    per_step = boot["first_s"] / boot["steps"]
+
+    def predict(cap):
+        widths = [min(L.bucket_npr(npr[ell]), n) for ell in range(1, cap + 1)]
+        steps = sum(scan_pc._plan_chunk(n, w, ell, L.DEFAULT_CELL_BUDGET)[1]
+                    for ell, w in enumerate(widths, 1))
+        # the service records every step twice: plan_schedule's programs a
+        # level, then the slot's program (each an eager run, a capture and
+        # a first replay, as phase 6 (b)'s first call)
+        return widths, steps, 2 * steps * per_step
+
+    widths, steps, first = predict(2)
+    cap = 2 if first <= SERVE_S56_FIRST_S else 1
+    print(f"phase 7 (b) §5.6 request n={n} m={m} density {cfg['density']}: predicted first "
+          f"call at cap 2 {first:.1f} s (widths {widths}, {steps} steps × 2 recordings × "
+          f"{per_step * 1e3:.3f} ms, phase 6 (b)'s first call a recorded step): run at cap "
+          f"{cap}" + ("" if cap == 2 else f" (predicted {predict(1)[2]:.1f} s)"))
+    x = sample_gaussian_dag(n, m, cfg["density"], seed=cfg["seed"])[0].astype(np.float32)
+    svc = PCService(ServeConfig())
+    capture.reset_log()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    times = []
+    for rid in ("s5.6", "s5.6 again"):
+        t0 = time.monotonic()
+        svc.submit(Request(rid=rid, x=x, alpha=alpha, max_level=cap, timeout_s=3600.0))
+        rep = svc.drain()
+        times.append(spent(torch, t0))
+    got, log = dict(build.LAUNCHES), capture.log()
+    g, again = rep.result("s5.6"), rep.result("s5.6 again")
+    plan = next(e for e in rep.events if e["event"] == "plan")
+    print(f"  first call {times[0]:.3f} s (latency {g.latency_s:.3f} s, dispatch "
+          f"{g.dispatch_s:.3f} s), the same request again {times[1]:.3f} s; schedule "
+          f"{plan['schedule']}, tier {g.tier}, {int(g.adj.sum()) // 2} edges; {recordings(log)}; "
+          f"launches {json.dumps(nonzero(got))}  [{card}]")
+    c = ops.correlation(torch.tensor(x, device=dev))
+    ref = pc_from_corr(c, m, alpha=alpha, engine="S-kernel", max_level=cap, device=dev)
+    for res in (g, again):
+        check(res.tier == "slot" and res.exact
+              and all(np.array_equal(getattr(res, f), getattr(ref, f))
+                      for f in ("adj", "sepsets", "cpdag")),
+              f"the §5.6 request (tier {res.tier}) differs from pc_from_corr(engine='S-kernel', "
+              f"max_level={cap})")
+    print(f"  both bitwise pc_from_corr(c, m, engine='S-kernel', max_level={cap})")
+    capture.clear()
+    torch.cuda.empty_cache()
+
+
+def serve_faults(torch, card):
+    """(c) ``pc_serve --faults`` on (b)'s stream (ManualClock): req-2
+    rejected, req-4 delivered wider after one certificate miss, req-6
+    retried for corruption and delivered, req-8 dead-lettered; the event
+    sequence equal to the port's CPU run of the stream fed the card's C.
+    Then a degrade run to the stable-ref rung, explained against the solo
+    scan."""
+    from repro_torch.batch import capture, scan_pc
+    from repro_torch.core.cit import threshold
+    from repro_torch.kernels import ops
+    from repro_torch.launch import pc_serve
+    from repro_torch.serve import FaultPlan, ManualClock, PCService, Request, ServeConfig
+    from repro_torch.serve import admission
+
+    dev = torch.device("cuda")
+    args = pc_serve.parser().parse_args([*SERVE_ARGV, "--faults"])
+    reqs = pc_serve.stream(args)
+    capture.reset_log()
+    t0 = time.monotonic()
+    svc, rep, total = pc_serve.serve(pc_serve.make_service(args), reqs, submit_all=True)
+    secs = spent(torch, t0)
+    print(f"phase 7 (c) pc_serve --faults on (b)'s stream: {secs:.3f} s; "
+          f"{recordings(capture.log())}  [{card}]")
+    serve_lines(svc, rep, len(reqs), total)
+    retries = [(e["rid"], e["reason"], e["attempt"]) for e in rep.events if e["event"] == "retry"]
+    g4 = rep.delivered.get("req-4", {}).get(0)
+    check(rep.rejections.get("req-2") is not None and rep.rejections["req-2"].code == "injected",
+          "req-2 was not rejected as injected")
+    check(g4 is not None and g4.tier == "slot-wider" and g4.attempts == 2
+          and ("req-4", "cert_miss", 1) in retries,
+          f"req-4 did not end at slot-wider after one certificate miss: {g4}")
+    check(("req-6", "corruption", 1) in retries and "req-6" in rep.delivered,
+          "req-6 was not retried for corruption and delivered")
+    check([(d.rid, d.code) for d in rep.dead_letters] == [("req-8", "deadline")],
+          f"the dead letters are {[(d.rid, d.code) for d in rep.dead_letters]}, not req-8's "
+          "deadline")
+
+    keys = ("event", "rid", "rids", "lane", "attempt", "attempts", "schedule", "jitter")
+
+    def events(r):
+        return [{k: (list(e[k]) if isinstance(e[k], tuple) else e[k]) for k in keys if k in e}
+                for e in r.events]
+
+    cpu_args = pc_serve.parser().parse_args([*SERVE_ARGV, "--faults", "--device", "cpu"])
+    own = admission.sample_correlation
+    admission.sample_correlation = lambda x, device: own(x, dev)  # the card's C
+    try:
+        t0 = time.monotonic()
+        _, cpu_rep, _ = pc_serve.serve(pc_serve.make_service(cpu_args), pc_serve.stream(cpu_args),
+                                       submit_all=True)
+        cpu_s = time.monotonic() - t0
+    finally:
+        admission.sample_correlation = own
+    same = events(rep) == events(cpu_rep)
+    print(f"  the CPU run of the same stream on the card's C ({cpu_s:.1f} s): {len(rep.events)} "
+          f"events, sequence equal {same}")
+    check(same, "the card's event sequence differs from the CPU run's")
+
+    cfg = ServeConfig()
+    rid, req = reqs[0][1].rid, reqs[0][1]
+    m = req.x.shape[0]
+    svc_d = PCService(cfg, clock=ManualClock(),
+                      faults=FaultPlan(cert_miss={rid: cfg.widen_attempts + 2}))
+    svc_d.submit(Request(rid=rid, x=req.x, alpha=req.alpha, max_level=req.max_level))
+    t0 = time.monotonic()
+    g = svc_d.drain().result(rid)
+    secs = spent(torch, t0)
+    c = ops.correlation(torch.tensor(req.x, device=dev))
+    solo = scan_pc.pc_scan(c, m, alpha=req.alpha, max_level=req.max_level, device=dev)
+    solo = SimpleNamespace(adj=solo.adj.cpu().numpy(), sepsets=solo.sepsets.cpu().numpy())
+    n_diff, unexplained = explain_diffs(g, solo, c.double().cpu().numpy(), m, req.alpha,
+                                        threshold, sepsets=False, empty=True)
+    print(f"  degrade run, {rid} (n={req.x.shape[1]}) with cert_miss {cfg.widen_attempts + 2}: "
+          f"tier {g.tier}, exact {g.exact}, {g.attempts} attempts, {secs:.3f} s; against its "
+          f"solo pc_scan {n_diff} edges differ ({unexplained} outside the τ band and fp32 "
+          f"bound), {int(g.adj.sum()) // 2} edges")
+    check(g.tier == "stable-ref" and not g.exact, f"the degrade run ended at {g.tier}")
+    check(unexplained == 0, "the stable-ref skeleton differs from the solo scan outside the band")
+    capture.clear()
+
+
+def serve_scrape(svc):
+    """(d) ``pc_serve``'s metrics endpoint on (b)'s service: a GET of
+    /metrics on a free localhost port."""
+    import socket
+    import urllib.request
+
+    from repro_torch.launch import pc_serve
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    httpd = pc_serve.serve_metrics(svc, port)
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as resp:
+            body = resp.read().decode()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    names = ("pc_serve_deliveries_total", "pc_serve_requests_total",
+             "pc_serve_latency_seconds_count")
+    lines = [ln for ln in body.splitlines() if ln.startswith(names)]
+    print(f"phase 7 (d) GET http://127.0.0.1:{port}/metrics: {len(body)} bytes; "
+          + "; ".join(lines))
+    check(any(ln.startswith("pc_serve_deliveries_total") for ln in lines),
+          "the /metrics scrape has no pc_serve_deliveries_total")
 
 
 if __name__ == "__main__":

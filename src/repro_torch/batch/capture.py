@@ -28,6 +28,11 @@ more than ``MAX_NODES`` nodes is refused with :class:`GraphTooLarge`.
 replays were shown to run on the H100; graphs of 3.4·10⁶ and 4.5·10⁶
 such nodes faulted or crashed there (``scripts/scan_graph_probe.py``).
 
+Each recording and each eviction is logged (:func:`log`): a serving
+stream records one program a (slot size, τ vector, schedule), and the
+log says how many it recorded, their seconds and how many the LRU
+dropped.
+
 Launch counts stay true: the kernel wrappers count in Python
 (``kernels.build.LAUNCHES``), which a replay does not run, so each
 program records what its capture counted, takes it back (a capture
@@ -58,6 +63,9 @@ MAX_NODES = 1_713_806
 SEGMENT_NODES = 500_000
 FIRST_SPAN = 16
 _RECORDING = None  # the Program being captured
+#: since the last ``reset_log``: one (name, record_s, nodes) a recording,
+#: and the programs dropped to keep MAX_PROGRAMS
+_LOG = {"recorded": [], "evicted": 0}
 
 
 class GraphTooLarge(RuntimeError):
@@ -208,8 +216,10 @@ def run(key: tuple, fn, inputs, keep=()) -> tuple:
         return prog(*inputs)
     prog = Program(key, fn, inputs, keep)
     _PROGRAMS[key] = prog
+    _LOG["recorded"].append((str(key[0]), prog.record_s, sum(prog.nodes)))
     while len(_PROGRAMS) > MAX_PROGRAMS:
         _PROGRAMS.popitem(last=False)
+        _LOG["evicted"] += 1
     first, prog.first = prog.first, None
     return first
 
@@ -217,6 +227,17 @@ def run(key: tuple, fn, inputs, keep=()) -> tuple:
 def programs() -> list:
     """The cached programs, least recently used first."""
     return list(_PROGRAMS.values())
+
+
+def log() -> dict:
+    """{"recorded": [(program name, record seconds, graph nodes), ...],
+    "evicted": programs dropped} since the last :func:`reset_log`."""
+    return {"recorded": list(_LOG["recorded"]), "evicted": _LOG["evicted"]}
+
+
+def reset_log() -> None:
+    _LOG["recorded"].clear()
+    _LOG["evicted"] = 0
 
 
 def clear() -> None:

@@ -41,10 +41,10 @@ import numpy as np
 import torch
 
 from .. import device as D
-from ..core.cit import correlation_from_samples
+from .. import obs
+from ..core.cit import check_corr, correlation_of
 from ..core.levels import DEFAULT_CELL_BUDGET
 from ..core.orient import cpdag_from_membership, sepset_membership
-from ..obs import Tracer
 from .scan_pc import DEFAULT_MAX_LEVEL, _no_mesh, pc_scan_batch, scan_levels_batch
 
 
@@ -87,16 +87,11 @@ def bootstrap_corr(x, indices, corr: str = "auto") -> torch.Tensor:
     corr kernel for a CUDA x, its plain version for a CPU one), "plain"
     ``cit.correlation_from_samples``, "auto" the kernel on the card and
     the plain version on the CPU."""
-    if corr not in ("auto", "kernel", "plain"):
-        raise ValueError(f"corr must be auto|kernel|plain, got {corr!r}")
+    check_corr(corr)
     x = x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
     x = x.to(torch.float32)
     indices = torch.as_tensor(indices, dtype=torch.int64).to(x.device)
-    if corr == "kernel" or (corr == "auto" and x.device.type == "cuda"):
-        from repro_torch.kernels.ops import correlation
-    else:
-        correlation = correlation_from_samples
-    return torch.stack([correlation(x[idx]) for idx in indices])
+    return torch.stack([correlation_of(x[idx], corr) for idx in indices])
 
 
 #: Byte cap on the sepset-vote membership tensor formed per aggregation
@@ -171,7 +166,7 @@ def bootstrap_pc(
     """
     dev = D.resolve_device(device)
     _no_mesh(mesh)
-    tracer = Tracer()
+    tracer = obs.run_tracer("bootstrap_pc")
     with tracer.span("total", n_boot=int(n_boot)):
         x = (x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x)))
         x = x.to(dev, torch.float32)
@@ -220,7 +215,7 @@ def bootstrap_pc(
                                            vote_chunk=_vote_chunk(n_boot, n))
             sp.sync(cpdag)
 
-    return EnsembleRun(
+    run = EnsembleRun(
         edge_freq=freq.cpu().numpy(),
         adj=skel.cpu().numpy(),
         cpdag=cpdag.cpu().numpy(),
@@ -231,3 +226,5 @@ def bootstrap_pc(
         schedule=schedule,
         timings_s=tracer.timings(),
     )
+    tracer.finish(driver="bootstrap_pc", n_boot=int(n_boot))
+    return run

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import device as D
+from .. import obs
 from ..core import levels as L
 from ..core.cit import DiscreteStats, fisher_z, threshold
 from ..core.compact import compact_rows
@@ -506,12 +507,15 @@ def pc_scan_batch(
         raise ValueError(f"pc_scan_batch expects (B, n, n); got shape {tuple(cs.shape)}")
     _no_mesh(mesh)
     b = int(cs.shape[0])
-    taus, max_level, schedule = _prep(cs, m, alpha, max_level, sepset_depth, n_prime, taus,
-                                      dev=dev)
-    budget = max(int(cell_budget) // max(b, 1), 2**16)
-    return _run_batch(cs, np.broadcast_to(taus, (b, max_level + 1)), schedule=schedule,
-                      sepset_depth=sepset_depth, cell_budget=budget, jitter=jitter,
-                      orient=orient)
+    with obs.span("pc_scan_batch", batch=b, n=int(cs.shape[1]), sharded=False) as sp:
+        taus, max_level, schedule = _prep(cs, m, alpha, max_level, sepset_depth, n_prime, taus,
+                                          dev=dev)
+        budget = max(int(cell_budget) // max(b, 1), 2**16)
+        res = _run_batch(cs, np.broadcast_to(taus, (b, max_level + 1)), schedule=schedule,
+                         sepset_depth=sepset_depth, cell_budget=budget, jitter=jitter,
+                         orient=orient)
+        sp.set(schedule=list(schedule)).sync(res.adj)
+    return res
 
 
 def alpha_sweep(

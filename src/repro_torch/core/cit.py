@@ -120,6 +120,27 @@ def correlation_from_samples(x: torch.Tensor) -> torch.Tensor:
     return c
 
 
+CORR_PATHS = ("auto", "kernel", "plain")
+
+
+def check_corr(corr: str) -> None:
+    if corr not in CORR_PATHS:
+        raise ValueError(f"corr must be auto|kernel|plain, got {corr!r}")
+
+
+def correlation_of(x: torch.Tensor, corr: str = "auto") -> torch.Tensor:
+    """C (n, n) of samples x (m, n) by ``corr``: "kernel" through the
+    corr kernel (``kernels.ops.correlation``, whose CPU tensors take its
+    plain version), "plain" through :func:`correlation_from_samples`,
+    "auto" the kernel for a CUDA x and the plain version for a CPU one."""
+    check_corr(corr)
+    if corr == "kernel" or (corr == "auto" and x.device.type == "cuda"):
+        from ..kernels.ops import correlation
+
+        return correlation(x)
+    return correlation_from_samples(x)
+
+
 @dataclasses.dataclass(frozen=True)
 class GaussianCITest:
     """The Fisher-z partial-correlation test: the statistic is C, the

@@ -34,6 +34,7 @@ import functools
 
 import torch
 
+from .. import obs
 from . import levels as L
 from .levels import DEFAULT_CELL_BUDGET
 
@@ -116,7 +117,7 @@ def run_level(c, adj, sep, ell: int, tau: float, engine="auto",
         adj, sep, st = L.run_level(c, adj, sep, ell, tau, chunk_fn_s=fn, **kw)
         st["test"] = "discrete"
     elif name == "L1-dense":
-        return _run_level_dense_l1(c, adj, sep, tau, rank_dtype)
+        adj, sep, st = _run_level_dense_l1(c, adj, sep, tau, rank_dtype)
     elif name == "S-kernel":
         adj, sep, st = L.run_level(c, adj, sep, ell, tau,
                                    chunk_fn_s=chunk_fn_s or ops.chunk_s_kernel, **kw)
@@ -134,6 +135,9 @@ def run_level(c, adj, sep, ell: int, tau: float, engine="auto",
         adj, sep, st = L.run_level(c, adj, sep, ell, tau, engine=name, chunk_fn_s=chunk_fn_s,
                                    chunk_fn_e=chunk_fn_e, pipeline_depth=pipeline_depth, **kw)
     st["engine"] = name
+    # the one seam where per-level counters enter the metrics registry
+    # (levels.run_level stays registry-free, so nothing counts twice)
+    obs.record_level_stats(st, level=ell, layout="single")
     return adj, sep, st
 
 

@@ -29,11 +29,11 @@ import numpy as np
 import torch
 
 from .. import device as D
-from ..obs import Tracer
+from .. import obs
 from . import engines as E
 from . import levels as L
 from . import validate as V
-from .cit import correlation_from_samples, encode_discrete, resolve_citest
+from .cit import check_corr, correlation_of, encode_discrete, resolve_citest
 from .combinadics import MAX_LEVEL
 from .orient import cpdag_from_skeleton
 
@@ -96,7 +96,7 @@ def pc_from_corr(c, m: int, alpha: float = 0.01, engine="auto",
             f"pc_from_corr runs the Gaussian partial-correlation test; a {test.kind!r} "
             "CI test needs raw samples — call pc(x, test=...) instead")
     _check_engine(engine, test)
-    tracer = Tracer()
+    tracer = obs.run_tracer("pc_from_corr")
     with tracer.span("total", engine=str(engine)):
         if validate:
             V.validate_corr(c, m, max_level=max_level)
@@ -114,6 +114,8 @@ def pc_from_corr(c, m: int, alpha: float = 0.01, engine="auto",
                                     rank_dtype=D.rank_dtype(wide_ranks), bucket=bucket,
                                     pipeline_depth=pipeline_depth)
     run.timings_s = tracer.timings()
+    tracer.finish(driver="pc_from_corr", engine=str(engine), n=int(run.adj.shape[0]),
+                  levels_run=run.levels_run)
     return run
 
 
@@ -219,7 +221,7 @@ def _pc_discrete(x, test, *, engine="auto", max_level=None, sepset_depth=SEPSET_
     stats, r_max = encode_discrete(x, device=device)
     test = dataclasses.replace(test, m=int(stats.codes.shape[0]), r=max(int(test.r), r_max))
     _check_engine(engine, test)
-    tracer = Tracer()
+    tracer = obs.run_tracer("pc_discrete")
     with tracer.span("total", engine=str(engine)):
         if max_level is None:
             # cap where the table still fits; an explicit deeper max_level
@@ -245,6 +247,8 @@ def _pc_discrete(x, test, *, engine="auto", max_level=None, sepset_depth=SEPSET_
                                     rank_dtype=D.rank_dtype(wide_ranks), bucket=bucket,
                                     pipeline_depth=pipeline_depth)
     run.timings_s = tracer.timings()
+    tracer.finish(driver="pc_discrete", engine=str(engine), n=int(run.adj.shape[0]),
+                  levels_run=run.levels_run)
     return run
 
 
@@ -268,17 +272,10 @@ def pc(x, alpha: float = 0.01, engine="auto", max_level: int | None = None,
                              "does not compute correlations")
         return _pc_discrete(x, t, engine=engine, max_level=max_level, validate=validate,
                             device=dev, **kw)
-    if corr not in ("auto", "kernel", "plain"):
-        raise ValueError(f"corr must be auto|kernel|plain, got {corr!r}")
+    check_corr(corr)
     x = _tensor(x).to(torch.float32)
     if validate:
         V.validate_samples(x, max_level=max_level)
-    x = x.to(dev)
-    if corr == "kernel" or (corr == "auto" and dev.type == "cuda"):
-        from repro_torch.kernels.ops import correlation
-
-        c = correlation(x)
-    else:
-        c = correlation_from_samples(x)
+    c = correlation_of(x.to(dev), corr)
     return pc_from_corr(c, int(x.shape[0]), alpha=alpha, engine=engine,
                         max_level=max_level, validate=False, test=t, device=dev, **kw)
