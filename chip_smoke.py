@@ -111,7 +111,28 @@ Phases, each of which exits non-zero on failure:
    dead-lettered, the event sequence equal to the port's CPU run of the
    stream on the card's C; a degrade run to the stable-ref rung, its
    skeleton explained against the solo scan; (d) a GET of ``pc_serve``'s
-   /metrics endpoint on a free localhost port.
+   /metrics endpoint on a free localhost port;
+8. mesh (``repro_torch.core.distributed``, ``core/sharding.py``): a mesh
+   of 4 logical shards on the card (every visible card when there are
+   more). ``pc_distributed`` on NCI-60 and the §5.6 instance under "S"
+   and "S-grid" in the layouts replicated, ``shard_c``, ``shard_sep`` and
+   ``shard_c`` + ``shard_sep`` (with ``speculate`` under "S-grid"), and
+   "S" at pipeline depth 2, each with the counts reset just before and
+   read just after (corr, level0 once; "S-grid": sgrid once a shard a
+   planned launch): adj, sepsets and CPDAG bitwise the single-device
+   ``pc(x, engine=e)``, the per-level chunks, dispatches and column-gather
+   bytes, a steady call's seconds (and, on NCI-60, single-device "S" at
+   a 16× smaller cell budget bitwise the default: a test decides the
+   same in a chunk of any shape). ``ops.chunk_s_grid_tests_cols`` (the
+   sharded-C route: ``gather_s_cols`` and sgrid's gathered entry) on every
+   shard's first launch of NCI-60's ℓ = 1 and §5.6's ℓ = 2: winners
+   within the τ band of the plain version and bitwise the fused entry's,
+   timed beside the fused route, its bound as phase 2's gathered rows
+   count it. ``pc_scan_batch`` on the batch cell (a) and ``bootstrap_pc``
+   (18 replicates of (a)'s lane 0: an identity-lane pad) with ``mesh=``,
+   bitwise their ``mesh=None`` runs; (b)'s stream through
+   ``PCService(ServeConfig(mesh=))``, every graph bitwise the unsharded
+   service's. The phase prints its seconds.
 
 The last two lines are a ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -873,7 +894,8 @@ def main() -> int:
     discrete(torch, rows, launches)
     card = smi.stdout.strip()
     boot = batch(torch, card)
-    serving(torch, card, auto, auto56, boot)
+    svc = serving(torch, card, auto, auto56, boot)
+    multi_device(torch, card, svc)
 
     sources = {"corr": ("src/repro_torch/csrc/corr.cu", "src/repro/kernels/corr.py:38"),
                "level0": ("src/repro_torch/csrc/level0.cu", "src/repro/kernels/level0.py:28"),
@@ -1728,6 +1750,7 @@ def serving(torch, card, auto, auto56, boot):
         serve_scrape(svc)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return svc
 
 
 def serve_pc_run(torch, card, auto, tmp):
@@ -2071,6 +2094,301 @@ def serve_scrape(svc):
           + "; ".join(lines))
     check(any(ln.startswith("pc_serve_deliveries_total") for ln in lines),
           "the /metrics scrape has no pc_serve_deliveries_total")
+
+
+# phase 8: the multi-device layer. A mesh of MESH_SHARDS logical shards on
+# the one card, or every visible card when there are more than one
+MESH_SHARDS = 4
+# pc_distributed's layouts, each under "S" and "S-grid" (speculation is the
+# grid engine's), and "S" at pipeline depth 2
+MESH_LAYOUTS = (("replicated", {}), ("shard_c", dict(shard_c=True)),
+                ("shard_sep", dict(shard_sep=True)),
+                ("shard_c+shard_sep+speculate", dict(shard_c=True, shard_sep=True,
+                                                     speculate=True)))
+# phase 8's bootstrap: lane 0 of the batch cell (a), replicates not a
+# multiple of the shards (identity-lane pad)
+MESH_BOOT_REPLICATES = 18
+
+
+def multi_device(torch, card, svc):
+    """Phase 8: ``pc_distributed`` on NCI-60 and §5.6 in every layout,
+    bitwise the port's single-device run; ``ops.chunk_s_grid_tests_cols``
+    (sgrid's sharded-C route) at NCI-60's first ℓ = 1 launch and §5.6's
+    first ℓ = 2 launch; ``pc_scan_batch`` and ``bootstrap_pc`` at the batch
+    cell (a) and the serving stream of phase 7 (``svc``, its unsharded
+    service) with ``mesh=``, each bitwise its unsharded run."""
+    from repro_torch.core import sharding as S
+
+    t_phase = time.monotonic()
+    n_cards = torch.cuda.device_count()
+    mesh = (S.make_mesh() if n_cards > 1
+            else S.make_mesh(devices=("cuda:0",) * MESH_SHARDS))
+    kind = "every visible card" if n_cards > 1 else "logical shards on one card"
+    print(f"phase 8 mesh: {mesh!r} ({kind})  [{card}]")
+    for label, cfg in (("NCI-60", NCI60), ("§5.6", S56)):
+        mesh_runs(torch, card, label, cfg, mesh)
+    mesh_batch(torch, card, mesh)
+    mesh_serving(torch, card, mesh, svc)
+    print(f"phase 8: {time.monotonic() - t_phase:.1f} s  [{card}]")
+
+
+def mesh_runs(torch, card, label, cfg, mesh):
+    """``pc_distributed`` on one instance in each layout of MESH_LAYOUTS
+    under "S" and "S-grid" and "S" at depth 2, with the counts reset just
+    before each and read just after: adj, sepsets and CPDAG bitwise the
+    single-device ``pc(x, engine=e)`` on the card; the per-level chunks,
+    dispatches and column-gather bytes and a steady call's seconds. Then
+    the sharded-C route on the instance's first grid launch."""
+    import numpy as np
+
+    from repro_torch import pc
+    from repro_torch.core import engines
+    from repro_torch.core.cit import threshold
+    from repro_torch.core.distributed import pc_distributed
+    from repro_torch.data.synthetic_dag import sample_gaussian_dag
+    from repro_torch.kernels import build, ops
+
+    dev = mesh[0]
+    k = len(mesh)
+    n, m, alpha = cfg["n"], cfg["m"], cfg["alpha"]
+    x_np, _ = sample_gaussian_dag(n, m, cfg["density"], seed=cfg["seed"])
+    singles = {e: pc(x_np, alpha=alpha, engine=e, device=dev) for e in ("S", "S-grid")}
+    if label == "NCI-60":
+        # what sharding relies on: on the card "S" decides a test the same
+        # in a chunk of any shape (levels._sweep_terms_in_order)
+        small = pc(x_np, alpha=alpha, engine="S", device=dev, cell_budget=2**20)
+        same = all(np.array_equal(getattr(small, f), getattr(singles["S"], f))
+                   for f in ("adj", "sepsets", "cpdag"))
+        print(f"phase 8 {label} single-device S at cell_budget 2^20 "
+              f"({sum(st['chunks'] for st in small.level_stats)} chunks, default "
+              f"{sum(st['chunks'] for st in singles['S'].level_stats)}): bitwise the default "
+              f"budget's {same}  [{card}]")
+        check(same, f"{label} S depends on its chunk plan on the card")
+    runs = [(e, name, kw) for e in ("S", "S-grid") for name, kw in MESH_LAYOUTS]
+    runs = [(e, name, {key: v for key, v in kw.items() if e == "S-grid" or key != "speculate"})
+            for e, name, kw in runs] + [("S", "replicated, depth 2", dict(pipeline_depth=2))]
+    for engine, name, kw in runs:
+        name = name.replace("+speculate", "") if "speculate" not in kw else name
+        def call(engine=engine, kw=kw):
+            return pc_distributed(x_np, alpha=alpha, mesh=mesh, engine=engine, **kw)
+
+        for d in mesh.distinct():
+            torch.cuda.synchronize(d)
+        build.reset_launches()
+        t0 = time.monotonic()
+        run = call()
+        first_s = time.monotonic() - t0
+        got = dict(build.LAUNCHES)
+        t0 = time.monotonic()
+        again = call()
+        steady_s = time.monotonic() - t0
+        want = singles[engine]
+        same = all(np.array_equal(getattr(run, f), getattr(want, f))
+                   for f in ("adj", "sepsets", "cpdag"))
+        chunks = sum(st["chunks"] for st in run.level_stats)
+        print(f"phase 8 pc_distributed {label} engine={engine} {name} on {k} shards: first "
+              f"{first_s:.3f} s, steady {steady_s:.3f} s, {run.levels_run} levels, "
+              f"{int(run.adj.sum()) // 2} edges, bitwise single-device pc(x, engine={engine!r}): "
+              f"{same}; launches {json.dumps(nonzero(got))}  [{card}]")
+        for st in run.level_stats:
+            print(f"  level {st['level']}: chunks {st['chunks']} dispatches {st['dispatches']} "
+                  f"n_chunk {st.get('n_chunk')} npr_bucket {st.get('npr_bucket')} "
+                  f"col_gathers {st.get('col_gathers', '-')} col_gather_bytes "
+                  f"{st.get('col_gather_bytes', '-')} speculative {st.get('speculative', False)}")
+        check(same, f"pc_distributed {label} {engine} {name} differs from the single-device run")
+        check(all(np.array_equal(getattr(again, f), getattr(run, f))
+                  for f in ("adj", "sepsets", "cpdag")), f"two {label} {name} calls disagree")
+        check(got["corr"] > 0 and got["level0"] == 1,
+              f"{label} {engine} {name}: corr or level0 (once) did not launch: {got}")
+        if engine == "S-grid":
+            # one sgrid launch a shard a planned launch; a speculative
+            # launch for the level where the run stops is dropped
+            extra = k if kw.get("speculate") else 0
+            check(k * chunks <= got["sgrid"] <= k * chunks + extra,
+                  f"{label} S-grid {name}: sgrid launched {got['sgrid']} times for {chunks} "
+                  f"launches on {k} shards")
+        else:
+            check(not any(got[key] for key in ("sgrid", "skernel", "cholinv", "cisweep")),
+                  f"{label} S {name} launched a kernel of another engine: {got}")
+    # the single-device runs' mutual agreement (the sharded ones equal them)
+    c64 = ops.correlation(torch.tensor(x_np, dtype=torch.float32, device=dev)).double().cpu()
+    n_diff, unexplained = explain_diffs(singles["S-grid"], singles["S"], c64.numpy(), m, alpha,
+                                        threshold)
+    print(f"  single-device S-grid against S: {n_diff} edges differ ({unexplained} outside the "
+          "τ band and fp32 bound)")
+    check(unexplained == 0, f"{label}: S-grid differs from S outside the τ band")
+
+    c = ops.correlation(torch.tensor(x_np, dtype=torch.float32, device=dev))
+    tau = [threshold(m, ell, alpha) for ell in range(3)]
+    adj, sep0, _ = ops.level0_span(c, tau[0], 8)
+    ell = 1 if label == "NCI-60" else 2
+    if ell == 2:
+        adj, _, _ = engines.run_level(c, adj, sep0, 1, tau[1])
+    sharded_c_route(torch, card, label, c, adj, ell, tau[ell], mesh)
+
+
+def sharded_c_route(torch, card, label, c, adj, ell, tau, mesh):
+    """``ops.chunk_s_grid_tests_cols`` on every shard's first launch of
+    level ℓ as ``pc_distributed(shard_c=True, engine="S-grid")`` plans it:
+    ``levels.gather_s_cols`` over the shard's rows of C and the gathered
+    active columns, then sgrid's gathered entry. Each shard's winners are
+    held to the plain version (``sgrid_plain`` on the same gather) within
+    the τ band and to the fused entry on the same launch bitwise; shard
+    0's launch is timed (the route, its gather, the kernel alone, the
+    fused route, the plain version), the kernel's bound counted as the
+    gathered rows of phase 2 count it (``sgrid_work``)."""
+    from repro_torch.core import distributed as DI, levels as L, sharding as S
+    from repro_torch.kernels import build, ops, sgrid
+
+    n, k = c.shape[0], len(mesh)
+    pad = S.pad_amount(n, mesh)
+    npr = int(adj.sum(1).max())
+    npr_b, n_chunk, total = L.plan_level(npr, ell, max((n + pad) // k, 1),
+                                         cell_budget=L.GRID_CELL_BUDGET, n_cols=n)
+    adj_rep = S.replicate(adj, mesh)
+    lv = DI._Level(adj_rep, mesh, npr_b)
+    c_rows = DI.shard_correlation(c, mesh)
+    cols, col_pos, k_cols = DI._active_columns(adj.sum(1, dtype=torch.int32).cpu().numpy(), n)
+    c_cols = DI._gather_cols(c_rows, mesh, cols)
+    pos = S.replicate(torch.from_numpy(col_pos), mesh)
+    c_t = c.T.contiguous()
+    kw = dict(ell=ell, n_chunk=n_chunk, n_max=npr_b)
+    build.reset_launches()
+    checked = []
+    for s in range(k):
+        dev = mesh[s]
+        t0 = torch.zeros((), dtype=torch.int32, device=dev)
+        args = (c_rows[s], c_cols[s], pos[s], adj_rep[s], lv.compact[s], lv.counts[s], lv.rows[s])
+        g = L.gather_s_cols(*args, L._chunk_ranks(t0, n_chunk), ell=ell, n_max=npr_b)
+        got = ops.ci_shared_grid(*g, tau, ell=ell)
+        fused = sgrid.sgrid_fused(c.to(dev), adj_rep[s], lv.compact[s], lv.counts[s],
+                                  lv.rows[s], t0, tau, c_t=c_t.to(dev), **kw)
+        t_p, n_diff, n_out, n_band, _ = winners_check(
+            torch, f"sharded-C route {label} shard {s}", got,
+            lambda d, g=g: sgrid.sgrid_plain(*g, tau + d))
+        check(torch.equal(got[0], fused[0]) and torch.equal(got[1], fused[1]),
+              f"sharded-C route {label} shard {s}: winners differ from the fused entry's")
+        checked.append((n_diff, n_out, n_band))
+        if s == 0:
+            first = (args, g, t0, t_p)
+    launches = build.LAUNCHES["sgrid"]
+    args, g, t0, t_p = first
+    route_ms = cuda_ms(torch, lambda: ops.chunk_s_grid_tests_cols(*args, t0, tau, **kw))
+    gather_ms = cuda_ms(torch, lambda: L.gather_s_cols(*args, L._chunk_ranks(t0, n_chunk),
+                                                       ell=ell, n_max=npr_b))
+    k_ms = cuda_ms(torch, lambda: ops.ci_shared_grid(*g, tau, ell=ell))
+    fused_ms = cuda_ms(torch, lambda: ops.chunk_s_grid_tests(c, adj, lv.compact[0], lv.counts[0],
+                                                             lv.rows[0], t0, tau, c_t=c_t, **kw))
+    p_ms = cuda_ms(torch, lambda: sgrid.sgrid_plain(*g, tau), reps=3, warmup=1)
+    mask = g[4]
+    n_l, _, npr_g = mask.shape
+    cells, tested, ranks, found = sgrid_work(torch, t_p, mask)
+    bytes_moved = (ranks * (ell * ell + ell) * 4 + cells + tested * 4 * ell + n_l * npr_g * 4
+                   + found * ell * 4 + n_l * npr_g * (ell + 1) * 4)
+    b_ms, b_by = bound(bytes_moved, ranks * cholinv_ops(ell) + tested * cisweep_ops(ell))
+    print(f"phase 8 sharded-C route ops.chunk_s_grid_tests_cols {label} first ℓ={ell} launch: "
+          f"{k} shards of n_l={n_l}, T={n_chunk} of {total} ranks, n′={npr_b}, k={k_cols} "
+          f"gathered columns; winners (differing, outside the τ band, band cells) per shard "
+          f"{checked}, bitwise the fused entry on every shard; sgrid launched {launches} times "
+          f"({k} shards, each once a launch: 2 a shard here, the route and its check's fused "
+          f"entry); shard 0: route {route_ms:.4f} ms (gather_s_cols {gather_ms:.4f}, the "
+          f"gathered kernel {k_ms:.4f}), fused route on the same launch {fused_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, kernel bound {b_ms:.5f} ms ({b_by}: {tested} tested of {cells} "
+          f"visited cells, {ranks} set inverses)  [{card}]")
+    check(launches == 2 * k, f"sgrid launched {launches} times, not twice on each of {k} shards")
+
+
+def mesh_batch(torch, card, mesh):
+    """``pc_scan_batch`` on the batch cell (a) and ``bootstrap_pc`` on its
+    lane 0 (MESH_BOOT_REPLICATES replicates: identity-lane pad) with
+    ``mesh=``, each bitwise its ``mesh=None`` run; each shard records its
+    own program."""
+    import numpy as np
+
+    from repro_torch.batch import capture, ensemble, scan_pc
+    from repro_torch.data.synthetic_dag import sample_gaussian_dag
+    from repro_torch.kernels import build, ops
+
+    cfg = BATCH
+    b, n, m, alpha, lmax = cfg["B"], cfg["n"], cfg["m"], cfg["alpha"], cfg["max_level"]
+    dev = mesh[0]
+    xs = [sample_gaussian_dag(n, m, cfg["density"], seed=cfg["seed"] + j)[0] for j in range(b)]
+    cs = torch.stack([ops.correlation(torch.tensor(x, dtype=torch.float32, device=dev))
+                      for x in xs])
+    capture.clear()
+    schedule = scan_pc.plan_schedule(cs, m, alpha=alpha, max_level=lmax, bucket=False,
+                                     device=dev)
+    kw = dict(alpha=alpha, max_level=lmax, n_prime=schedule, orient=False)
+    one = scan_pc.pc_scan_batch(cs, m, device=dev, **kw)
+    t0 = time.monotonic()
+    first = scan_pc.pc_scan_batch(cs, m, mesh=mesh, **kw)
+    first_s = spent(torch, t0)
+    build.reset_launches()
+    t0 = time.monotonic()
+    sharded = scan_pc.pc_scan_batch(cs, m, mesh=mesh, **kw)
+    steady_s = spent(torch, t0)
+    got = dict(build.LAUNCHES)
+    same = all(torch.equal(getattr(sharded, f), getattr(one, f)) for f in one._fields)
+    print(f"phase 8 pc_scan_batch batch cell (a) B={b} on {len(mesh)} shards: schedule "
+          f"{schedule}, first {first_s:.3f} s (a program a shard), steady {steady_s:.4f} s, "
+          f"bitwise mesh=None {same}; launches {json.dumps(nonzero(got))}  [{card}]")
+    check(same and all(torch.equal(getattr(first, f), getattr(one, f)) for f in one._fields),
+          "sharded pc_scan_batch differs from mesh=None")
+    check(got["level0"] == b and got["skernel"] > 0, f"sharded replay launches {got}")
+
+    nb = MESH_BOOT_REPLICATES
+    x = torch.tensor(xs[0], dtype=torch.float32, device=dev)
+    boot = dict(n_boot=nb, alpha=alpha, max_level=lmax, seed=0)
+    t0 = time.monotonic()
+    ref = ensemble.bootstrap_pc(x, device=dev, **boot)
+    ref_s = spent(torch, t0)
+    t0 = time.monotonic()
+    got_boot = ensemble.bootstrap_pc(x, mesh=mesh, **boot)
+    boot_s = spent(torch, t0)
+    same = all(np.array_equal(getattr(got_boot, f), getattr(ref, f))
+               for f in ("edge_freq", "adj", "cpdag", "replicate_adj", "replicate_ok"))
+    print(f"phase 8 bootstrap_pc lane 0 of (a), {nb} replicates on {len(mesh)} shards "
+          f"(pad {(-nb) % len(mesh)}): {boot_s:.3f} s (mesh=None {ref_s:.3f} s, both with "
+          f"recordings), schedule {got_boot.schedule}, bitwise mesh=None {same}  [{card}]")
+    check(same and got_boot.schedule == ref.schedule,
+          "sharded bootstrap_pc differs from mesh=None")
+    capture.clear()
+
+
+def mesh_serving(torch, card, mesh, svc):
+    """Phase 7 (b)'s stream through ``PCService(ServeConfig(mesh=))``: the
+    same outcomes, every delivered graph bitwise the unsharded service's
+    (``svc``) for the same request and lane."""
+    import numpy as np
+
+    from repro_torch.batch import capture
+    from repro_torch.launch import pc_serve
+    from repro_torch.serve import PCService, ServeConfig
+
+    args = pc_serve.parser().parse_args(list(SERVE_ARGV))
+    reqs = pc_serve.stream(args)
+    capture.clear()
+    capture.reset_log()
+    sharded = PCService(ServeConfig(slot_size=args.slot_size, mesh=mesh))
+    sharded, rep, total = pc_serve.serve(sharded, reqs)
+    torch.cuda.synchronize()
+    plain = svc.report
+    print(f"phase 8 PCService(ServeConfig(mesh=)) on phase 7 (b)'s stream, {len(mesh)} shards: "
+          f"{len(reqs)} requests in {total:.3f} s = {len(rep.delivered) / total:.2f} requests/s, "
+          f"{rep.steps} dispatches; {recordings(capture.log())}  [{card}]")
+    check(not rep.rejections and not rep.dead_letters,
+          "the sharded stream rejected or dead-lettered a request")
+    check({r: sorted(v) for r, v in rep.delivered.items()}
+          == {r: sorted(v) for r, v in plain.delivered.items()},
+          "the sharded stream delivered other lanes than the unsharded one")
+    for rid, lanes in plain.delivered.items():
+        for lane, want in lanes.items():
+            g = rep.delivered[rid][lane]
+            check(all(np.array_equal(getattr(g, f), getattr(want, f))
+                      for f in ("adj", "sepsets", "cpdag")) and g.exact,
+                  f"{rid} lane {lane}: the sharded service's graph differs from the unsharded")
+    print("  every delivered graph bitwise the unsharded service's")
+    capture.clear()
 
 
 if __name__ == "__main__":

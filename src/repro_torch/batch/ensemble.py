@@ -40,12 +40,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .. import device as D
 from .. import obs
 from ..core.cit import check_corr, correlation_of
 from ..core.levels import DEFAULT_CELL_BUDGET
 from ..core.orient import cpdag_from_membership, sepset_membership
-from .scan_pc import DEFAULT_MAX_LEVEL, _no_mesh, pc_scan_batch, scan_levels_batch
+from .scan_pc import DEFAULT_MAX_LEVEL, _home, pc_scan_batch, scan_levels_batch
 
 
 @dataclass
@@ -163,9 +162,11 @@ def bootstrap_pc(
     sync a level for all replicates, always exact); a planned schedule (or
     int width) runs the one-program ``pc_scan_batch``. device: None means
     the CUDA card (raises without one); "cpu" runs the plain versions.
+    ``mesh`` (``core/sharding.py``) shards the replicate axis of the scan
+    over its devices (the correlations and the aggregate run on its first
+    device, which ``device`` then names); bitwise equal to mesh=None.
     """
-    dev = D.resolve_device(device)
-    _no_mesh(mesh)
+    dev = _home(mesh, device)
     tracer = obs.run_tracer("bootstrap_pc")
     with tracer.span("total", n_boot=int(n_boot)):
         x = (x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x)))
@@ -189,12 +190,13 @@ def bootstrap_pc(
             if n_prime is None:
                 res, schedule = scan_levels_batch(
                     cs, m, alpha=alpha, max_level=max_level, sepset_depth=sepset_depth,
-                    cell_budget=cell_budget, orient=False, device=dev,
+                    cell_budget=cell_budget, orient=False, mesh=mesh, device=dev,
                 )
             else:
                 res = pc_scan_batch(
                     cs, m, alpha=alpha, max_level=max_level, sepset_depth=sepset_depth,
-                    n_prime=n_prime, cell_budget=cell_budget, orient=False, device=dev,
+                    n_prime=n_prime, cell_budget=cell_budget, orient=False, mesh=mesh,
+                    device=dev,
                 )
                 schedule = (tuple(n_prime) if isinstance(n_prime, (tuple, list))
                             else (int(n_prime),) * max_level)

@@ -45,8 +45,19 @@ every α from one program); and orientation runs eagerly after the
 replay, because the port's orientation synchronises with the host
 (``torch.nonzero``, the Meek fixpoint's test).
 
-``mesh=`` (sharding the batch axis) is accepted only as None: the
-multi-device layer is ROADMAP Queue 1 item 12.
+Multi-device: the batch entries take ``mesh`` (``core/sharding.py``).
+The batch axis is then padded to a shard multiple with identity-
+correlation lanes (level 0 removes every edge, so each level is a masked
+no-op for them) and split over the mesh; each shard runs its lanes on its
+device (its own recorded program on the card) and the pad is dropped
+from every output, which lands on the mesh's first device. Every shard's
+program is queued before any host sync, so distinct cards overlap; the
+level-synced driver still reads one max degree a level for the whole
+batch. The cell budget divides by a shard's lanes, as in the reference,
+and results are bitwise equal to ``mesh=None`` (chunking never changes
+the committed winners). Shards on one card share its stream, so a
+program recorded for one of them is replayed for the next only after
+the last replay's outputs were copied out.
 """
 from __future__ import annotations
 
@@ -59,6 +70,7 @@ import torch
 from .. import device as D
 from .. import obs
 from ..core import levels as L
+from ..core import sharding as S
 from ..core.cit import DiscreteStats, fisher_z, threshold
 from ..core.compact import compact_rows
 from ..core.levels import DEFAULT_CELL_BUDGET, DEFAULT_JITTER
@@ -102,11 +114,35 @@ class ScanResult(NamedTuple):
     ok_levels: torch.Tensor
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= shards the batch axis over several devices, which the port does not do "
-            "yet (ROADMAP Queue 1 item 12, multi-device); pass mesh=None")
+def _home(mesh, device) -> torch.device:
+    """Where a batch entry's inputs and results live: the mesh's first
+    device, or ``device`` (None: the CUDA card) without a mesh."""
+    return mesh[0] if mesh is not None else D.resolve_device(device)
+
+
+def _pad_shard_batch(cs, taus, mesh):
+    """Pad the batch to a shard multiple with identity-correlation lanes
+    (τ 1 at every level) and split it over the mesh. Returns (the shards'
+    lanes, their (b_local, max_level+1) τ arrays, pad); without a mesh one
+    shard of every lane."""
+    if mesh is None:
+        return [cs], [taus], 0
+    pad = S.pad_amount(cs.shape[0], mesh)
+    if pad:
+        n = cs.shape[-1]
+        eye = torch.eye(n, dtype=cs.dtype, device=cs.device).expand(pad, n, n)
+        cs = torch.cat([cs, eye])
+        taus = np.concatenate([taus, np.ones((pad, taus.shape[-1]), np.float32)])
+    per = cs.shape[0] // S.mesh_size(mesh)
+    return (list(S.shard_batch(cs, mesh)[0]),
+            [taus[k * per:(k + 1) * per] for k in range(S.mesh_size(mesh))], pad)
+
+
+def _unshard(parts, dev: torch.device, pad: int) -> torch.Tensor:
+    """The shards' (b_local, ...) outputs as one batch on ``dev``, pad
+    lanes dropped."""
+    out = parts[0] if len(parts) == 1 else torch.cat([p.to(dev) for p in parts])
+    return S.unpad_leading(out, pad)
 
 
 def _lanes(cs, dev: torch.device) -> torch.Tensor:
@@ -455,15 +491,18 @@ def pc_scan(
                       max_degs=max_degs, ok_levels=ok_levels)
 
 
-def _run_batch(cs, lane_taus, *, schedule, sepset_depth, cell_budget, jitter, orient):
-    """Every lane's skeleton phase as one program (CUDA graphs on the
-    card), then orientation."""
+def _run_batch(shards, shard_taus, pad, dev, *, schedule, sepset_depth, cell_budget, jitter,
+               orient):
+    """Every shard's lanes through one program each (CUDA graphs on the
+    card), all queued before orientation, whose host syncs then wait on
+    one shard's device at a time; the results as one batch on ``dev``."""
     static = dict(schedule=schedule, sepset_depth=int(sepset_depth),
                   cell_budget=int(cell_budget), jitter=float(jitter))
-    adj, sep, max_degs, ok_levels = _lane_program(
-        "pc_scan_batch", lambda c, t: _scan_core(c, t, **static), lane_taus, (cs,), schedule,
-        *static.values())
-    cpdag = _orient_lanes(adj, sep) if orient else adj
+    parts = [_lane_program("pc_scan_batch", lambda c, t: _scan_core(c, t, **static), taus,
+                           (cs,), schedule, *static.values())
+             for cs, taus in zip(shards, shard_taus)]
+    parts = [(*p, _orient_lanes(p[0], p[1]) if orient else p[0]) for p in parts]
+    adj, sep, max_degs, ok_levels, cpdag = (_unshard(list(f), dev, pad) for f in zip(*parts))
     return ScanResult(adj=adj, cpdag=cpdag, sepsets=sep, ok=ok_levels.all(dim=-1),
                       max_degs=max_degs, ok_levels=ok_levels)
 
@@ -494,6 +533,11 @@ def pc_scan_batch(
 
     ``taus``: per-graph per-level thresholds, (B, max_level+1) or
     (max_level+1,) for every lane: lanes may carry different (m, alpha).
+
+    ``mesh`` (``core/sharding.py``): shard the batch axis over the mesh
+    (identity lanes pad B to a shard multiple; results on the mesh's first
+    device, bitwise equal to mesh=None); the budget then divides by a
+    shard's lanes. ``device`` is ignored with a mesh.
     """
     if test is not None and getattr(test, "kind", "gaussian") == "discrete":
         raise NotImplementedError(
@@ -501,17 +545,19 @@ def pc_scan_batch(
             "G² sweep needs a per-lane DiscreteStats layout — run graphs "
             "through pc_scan(test=...) individually"
         )
-    dev = D.resolve_device(device)
+    dev = _home(mesh, device)
     cs = _lanes(cs, dev)
     if cs.ndim != 3:
         raise ValueError(f"pc_scan_batch expects (B, n, n); got shape {tuple(cs.shape)}")
-    _no_mesh(mesh)
     b = int(cs.shape[0])
-    with obs.span("pc_scan_batch", batch=b, n=int(cs.shape[1]), sharded=False) as sp:
+    with obs.span("pc_scan_batch", batch=b, n=int(cs.shape[1]),
+                  sharded=mesh is not None) as sp:
         taus, max_level, schedule = _prep(cs, m, alpha, max_level, sepset_depth, n_prime, taus,
                                           dev=dev)
-        budget = max(int(cell_budget) // max(b, 1), 2**16)
-        res = _run_batch(cs, np.broadcast_to(taus, (b, max_level + 1)), schedule=schedule,
+        shards, shard_taus, pad = _pad_shard_batch(
+            cs, np.broadcast_to(taus, (b, max_level + 1)), mesh)
+        budget = max(int(cell_budget) // max(shards[0].shape[0], 1), 2**16)
+        res = _run_batch(shards, shard_taus, pad, dev, schedule=schedule,
                          sepset_depth=sepset_depth, cell_budget=budget, jitter=jitter,
                          orient=orient)
         sp.set(schedule=list(schedule)).sync(res.adj)
@@ -536,23 +582,22 @@ def alpha_sweep(
     program. ``n_prime=None`` plans the level-0 bound at ``max(alphas)``:
     the loosest test keeps a superset of every lane's level-0 edges, so
     the sweep is exact (``ok`` all True). The ParallelPC workload
-    (PAPERS.md, arXiv 1510.03042)."""
-    dev = D.resolve_device(device)
+    (PAPERS.md, arXiv 1510.03042). ``mesh`` shards the α lanes."""
+    dev = _home(mesh, device)
     c = _lanes(c, dev)
     if c.ndim != 2:
         raise ValueError(f"alpha_sweep expects one (n, n) matrix; got {tuple(c.shape)}")
     alphas = [float(a) for a in alphas]
     if not alphas:
         raise ValueError("alpha_sweep needs at least one alpha")
-    _no_mesh(mesh)
     lmax = DEFAULT_MAX_LEVEL if max_level is None else max_level
     taus = np.asarray([taus_for(m, a, lmax) for a in alphas], np.float32)
     if n_prime is None:
         n_prime = plan_n_prime(c, m, alpha=max(alphas), device=dev)
     return pc_scan_batch(
         c.expand(len(alphas), *c.shape), m, max_level=lmax, sepset_depth=sepset_depth,
-        n_prime=n_prime, cell_budget=cell_budget, orient=orient, taus=taus, jitter=jitter,
-        device=dev,
+        n_prime=n_prime, cell_budget=cell_budget, orient=orient, mesh=mesh, taus=taus,
+        jitter=jitter, device=dev,
     )
 
 
@@ -603,43 +648,49 @@ def scan_levels_batch(
     through its (ℓ, w, n_chunk, steps) key. Returns ``(ScanResult,
     schedule)``; the schedule replays the same workload through
     ``pc_scan_batch`` with no level syncs. ``taus``: per-graph (B,
-    max_level+1) thresholds, as in :func:`pc_scan_batch`.
+    max_level+1) thresholds, as in :func:`pc_scan_batch`. ``mesh`` shards
+    the batch axis as :func:`pc_scan_batch` does; a level's width is still
+    one read of the whole batch's max degree.
     """
-    dev = D.resolve_device(device)
+    dev = _home(mesh, device)
     cs = _lanes(cs, dev)
     if cs.ndim != 3:
         raise ValueError(f"scan_levels_batch expects (B, n, n); got {tuple(cs.shape)}")
-    _no_mesh(mesh)
     b, n = int(cs.shape[0]), int(cs.shape[-1])
     max_level, taus = _levels_and_taus(max_level, sepset_depth, taus,
                                        lambda lmax: taus_for(m, alpha, lmax))
-    taus = np.broadcast_to(taus, (b, max_level + 1))
-    budget = max(int(cell_budget) // max(b, 1), 2**16)
+    shards, shard_taus, pad = _pad_shard_batch(cs, np.broadcast_to(taus, (b, max_level + 1)),
+                                               mesh)
+    budget = max(int(cell_budget) // max(shards[0].shape[0], 1), 2**16)
 
-    adj, sep = _batch_init(cs, taus[:, 0], sepset_depth)
+    state = [_batch_init(c, t[:, 0], sepset_depth) for c, t in zip(shards, shard_taus)]
 
     schedule, max_degs = [], []
     for ell in range(1, max_level + 1):
-        deg_b = adj.sum(dim=-1, dtype=torch.int32).amax(dim=-1)  # (B,)
-        max_degs.append(deg_b)
-        max_deg = int(deg_b.max())  # the level's one host sync
+        degs = [a.sum(dim=-1, dtype=torch.int32).amax(dim=-1) for a, _ in state]  # (b_local,)
+        max_degs.append(degs)
+        # the level's one host sync, over every shard
+        max_deg = int(torch.stack([d.max().to(dev) for d in degs]).max())
         w = max(1, min(L.bucket_npr(max_deg) if bucket else max_deg, n))
         schedule.append(w)
         if max_deg - 1 < ell:
             continue  # no graph can run this level; keep probing widths
         if ell == 1 and _use_dense_l1(n, w, budget):
-            adj, sep = _batch_dense_l1(cs, adj, sep, taus[:, 1])
+            state = [_batch_dense_l1(c, a, s, t[:, 1])
+                     for c, t, (a, s) in zip(shards, shard_taus, state)]
             continue
         n_chunk, steps = _plan_chunk(n, w, ell, budget)
         if steps == 0:
             continue
-        adj, sep = _batch_level(cs, adj, sep, taus[:, ell], ell=ell, w=w, n_chunk=n_chunk,
-                                steps=steps)
+        state = [_batch_level(c, a, s, t[:, ell], ell=ell, w=w, n_chunk=n_chunk, steps=steps)
+                 for c, t, (a, s) in zip(shards, shard_taus, state)]
 
-    cpdag = _orient_lanes(adj, sep) if orient else adj
+    adj = _unshard([a for a, _ in state], dev, pad)
+    sep = _unshard([s for _, s in state], dev, pad)
+    cpdag = _unshard([_orient_lanes(a, s) if orient else a for a, s in state], dev, pad)
     ok = torch.ones((b,), dtype=torch.bool, device=dev)  # widths track the live bound
     ok_levels = torch.ones((b, len(schedule)), dtype=torch.bool, device=dev)
-    max_degs = (torch.stack(max_degs, dim=-1) if max_degs
+    max_degs = (torch.stack([_unshard(d, dev, pad) for d in max_degs], dim=-1) if max_degs
                 else torch.zeros((b, 0), dtype=torch.int32, device=dev))
     return ScanResult(adj=adj, cpdag=cpdag, sepsets=sep, ok=ok, max_degs=max_degs,
                       ok_levels=ok_levels), tuple(schedule)
@@ -660,7 +711,8 @@ def plan_schedule(
     """Tight per-level width schedule for a batched workload: the widths
     the level-synced driver discovers in one run. Plan on a pilot batch,
     then serve later batches through ``pc_scan_batch`` and re-run the rare
-    ``ok=False`` stragglers with ``n_prime=None``."""
+    ``ok=False`` stragglers with ``n_prime=None``. ``mesh`` shards the
+    planning pass's batch axis."""
     _, schedule = scan_levels_batch(
         cs, m, alpha=alpha, max_level=max_level, sepset_depth=sepset_depth,
         cell_budget=cell_budget, orient=False, bucket=bucket, mesh=mesh, taus=taus,

@@ -150,8 +150,9 @@ def batch_run(cs, m, *, mesh=None, level_sync: bool = False, **kw):
     widths found on the fly) and returns (ScanResult, schedule); otherwise
     ``pc_scan_batch`` (no level syncs) returns a ScanResult with a leading
     B axis. Both give the same results, equal to the single-graph engines
-    up to the static level cap whenever ``ok`` is True. ``mesh`` must be
-    None (multi-device is ROADMAP Queue 1 item 12)."""
+    up to the static level cap whenever ``ok`` is True. ``mesh``
+    (``core/sharding.py``) shards the batch axis over its devices, with
+    results bitwise equal to mesh=None."""
     from repro_torch.batch.scan_pc import pc_scan_batch, scan_levels_batch
 
     if level_sync:

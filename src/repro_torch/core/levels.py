@@ -4,7 +4,9 @@
   the Gaussian and the discrete test.
 * ``plan_sets`` / ``gather_s`` (``gather_sets`` for planned sets): unrank
   each chunk's conditioning sets and gather what the CI math reads, with
-  the full validity mask.
+  the full validity mask; ``gather_s_cols`` / ``subset_cols`` do it from
+  a shard's rows of C and the gathered active columns (the row-sharded C
+  layout of ``core/distributed.py``).
 * ``_inv_spd`` / ``ci_sweep`` / ``chunk_s``: the "S" engine, cuPC-S as
   PyTorch ops, the correctness anchor; ``chunk_s_tests`` /
   ``chunk_s_commit`` split it for the pipelined host loop.
@@ -12,8 +14,9 @@
   (row, slot, rank), no shared inverse).
 * ``_winners`` / ``_global_commit`` / ``_commit``: the deterministic
   (rank, endpoint-order) winner per undirected edge, for shared and
-  per-edge sets; ``commit_dense_l1`` replays that rule for the dense
-  ℓ = 1 kernel's ``kwin``.
+  per-edge sets; ``commit_adj`` / ``commit_sep_rows`` split that commit
+  for a row-sharded sepset tensor; ``commit_dense_l1`` replays the rule
+  for the dense ℓ = 1 kernel's ``kwin``.
 * ``plan_level`` / ``run_level``: the bucketed chunk plan and the host
   loop over rank chunks, with dispatch-ahead of depth ``pipeline_depth``
   on the plain "S" worklist.
@@ -186,10 +189,12 @@ def plan_sets(compact, counts, ranks, *, ell: int, n_max: int, n: int):
 
 
 def _set_mask(adj, compact, rows, s_ids, valid_set, n):
-    """Validity mask (n_l, T, n′): rank in range, j ∉ S, edge alive."""
+    """Validity mask (n_l, T, n′): rank in range, j ∉ S, edge alive. Row
+    ids ≥ n (a sharded block's pad rows, whose lists are all −1) read row
+    n − 1, as the reference's clamped gather does, and stay masked."""
     j_ids = torch.clamp(compact, 0, n - 1)
     in_s = (j_ids[:, None, :, None] == s_ids[:, :, None, :]).any(dim=-1)
-    alive = adj[rows[:, None].long(), j_ids.long()] & (compact >= 0)
+    alive = adj[rows.clamp(max=n - 1)[:, None].long(), j_ids.long()] & (compact >= 0)
     return valid_set[:, :, None] & ~in_s & alive[:, None, :]
 
 
@@ -202,12 +207,13 @@ def gather_s(c, adj, compact, counts, rows, ranks, *, ell: int, n_max: int):
 
 def gather_sets(c, adj, compact, rows, s_ids, valid_set):
     """``gather_s`` for sets already planned by ``plan_sets``: (m2, ci_s,
-    cj_s, cij, mask). cij is an expanded view, stride 0 over T."""
+    cj_s, cij, mask). cij is an expanded view, stride 0 over T. Row ids
+    ≥ n (pad rows of a sharded block) read row n − 1 and are masked."""
     n = c.shape[0]
     n_l, npr = compact.shape
     n_chunk = s_ids.shape[1]
     s = s_ids.long()
-    r = rows.long()
+    r = rows.clamp(max=n - 1).long()
     j_ids = torch.clamp(compact, 0, n - 1).long()
     m2 = c[s[..., :, None], s[..., None, :]]
     ci_s = c[r[:, None, None], s]
@@ -215,6 +221,44 @@ def gather_sets(c, adj, compact, rows, s_ids, valid_set):
     cij = c[r[:, None], j_ids][:, None, :].expand(n_l, n_chunk, npr)
     mask = _set_mask(adj, compact, rows, s_ids, valid_set, n)
     return m2, ci_s, cj_s, cij, mask
+
+
+def subset_cols(c_cols, positions):
+    """Slice a gathered column block C[:, cols_old] down to a shrunk
+    candidate set: ``positions`` (k_new,) are the new ids' places in
+    cols_old (``col_pos_old[cols_new]``; the caller checked cols_new ⊆
+    cols_old, which degree monotonicity guarantees). Returns exactly
+    C[:, cols_new] with no gather across shards: C is constant for a run
+    and the active set only shrinks, so a block gathered once stays a
+    superset (``distributed.ColumnCache`` keeps it)."""
+    return c_cols[:, positions.long()]
+
+
+def gather_s_cols(c_rows, c_cols, col_pos, adj, compact, counts, rows, ranks, *, ell: int,
+                  n_max: int):
+    """``gather_s`` for the ROW-SHARDED C layout. In place of the whole C
+    the caller gives c_rows (n_l, n), this shard's rows of C; c_cols
+    (≥ n, k), the gathered active columns C[:, cols] (or a
+    ``subset_cols`` of a cached block: the same values); col_pos (n,),
+    each id's place in cols (arbitrary for ids outside cols, which only
+    masked cells read). Every value the CI math reads has its row in the
+    shard or its column in cols: C[S,S] and C[j,S] from c_cols, C[i,S]
+    and C[i,j] from c_rows; the values equal the dense gather's, so the
+    sweep's decisions are bitwise the dense layout's."""
+    n = adj.shape[0]
+    n_l, npr = compact.shape
+    n_chunk = ranks.shape[0]
+    s_ids, valid_set = plan_sets(compact, counts, ranks, ell=ell, n_max=n_max, n=n)
+    s = s_ids.long()
+    loc = torch.arange(n_l, device=compact.device)
+    s_pos = col_pos[s].long()  # (n_l, T, ℓ) places in the k gathered columns
+    j_ids = torch.clamp(compact, 0, n - 1).long()
+    m2 = c_cols[s[..., :, None], s_pos[..., None, :]]
+    ci_s = c_rows[loc[:, None, None], s]
+    cj_s = c_cols[j_ids[:, None, :, None], s_pos[:, :, None, :]]
+    cij = c_rows[loc[:, None], j_ids][:, None, :].expand(n_l, n_chunk, npr)
+    mask = _set_mask(adj, compact, rows, s_ids, valid_set, n)
+    return m2, ci_s, cj_s, cij, mask, s_ids
 
 
 # ------------------------------------------------------------- the "S" engine
@@ -235,7 +279,9 @@ def _inv_spd(m, jitter: float = DEFAULT_JITTER):
     instead of raising) above it."""
     ell = m.shape[-1]
     eye = torch.eye(ell, dtype=m.dtype, device=m.device)
-    diag_scale = torch.mean(torch.abs(torch.diagonal(m, dim1=-2, dim2=-1)), dim=-1)
+    diag = torch.abs(torch.diagonal(m, dim1=-2, dim2=-1))
+    diag_scale = (_sum_in_order([diag[..., i] for i in range(ell)]) / ell if m.is_cuda
+                  else torch.mean(diag, dim=-1))
     m = m + (jitter * diag_scale)[..., None, None] * eye
     if ell == 2:
         a, b = m[..., 0, 0], m[..., 0, 1]
@@ -253,20 +299,68 @@ def _set_inverse(m2, ell: int, jitter: float = DEFAULT_JITTER):
     return _inv_spd(m2, jitter)
 
 
+def _sum_in_order(terms):
+    """terms[0] + terms[1] + … left to right, each sum rounded on its own."""
+    acc = terms[0]
+    for t in terms[1:]:
+        acc = acc + t
+    return acc
+
+
+def _sweep_terms_in_order(g, ci_s, cj_s, cij, ell: int):
+    """``ci_sweep``'s (num, var_i, var_j) with every contraction over ℓ
+    summed in index order from products rounded on their own. On the card
+    torch's batched products (cuBLAS) choose kernels, and with them fused
+    multiply-adds and summation orders, by the batch's shape, so one test
+    decided differently in chunks of another size (another budget, or a
+    shard's rows); elementwise ops round the same at any shape."""
+    ci = [ci_s[..., b] for b in range(ell)]
+    cj = [cj_s[..., b] for b in range(ell)]
+    u = [_sum_in_order([g[..., a, b] * ci[b] for b in range(ell)]) for a in range(ell)]
+    var_i = 1.0 - _sum_in_order([ci[a] * u[a] for a in range(ell)])
+    num = cij - _sum_in_order([cj[a] * u[a][..., None] for a in range(ell)])
+    gw = [_sum_in_order([g[..., a, b][..., None] * cj[b] for b in range(ell)])
+          for a in range(ell)]
+    var_j = 1.0 - _sum_in_order([cj[a] * gw[a] for a in range(ell)])
+    return num, var_i, var_j
+
+
 def ci_sweep(m2, ci_s, cj_s, cij, mask, tau, *, ell: int, jitter: float = DEFAULT_JITTER):
     """The cuPC-S CI math on a gathered chunk: per-set inverse and shared
-    vectors, then the neighbour sweep as einsums. Returns independence ∧
+    vectors, then the neighbour sweep as einsums (the reference's; on the
+    card in index order, ``_sweep_terms_in_order``, so that a test's
+    decision does not depend on the chunk's shape). Returns independence ∧
     mask, (n_l, T, n′) bool. ``jitter`` scales the Tikhonov term of the
     ℓ ≥ 2 inverses (the reference's ``ci_sweep`` parameter)."""
     _require_fp32_matmul(m2)
     g = _set_inverse(m2, ell, jitter)
-    u_i = torch.einsum("ntab,ntb->nta", g, ci_s)
-    var_i = 1.0 - torch.einsum("nta,nta->nt", ci_s, u_i)
-    num = cij - torch.einsum("ntpl,ntl->ntp", cj_s, u_i)
-    gw = torch.einsum("ntab,ntpb->ntpa", g, cj_s)
-    var_j = 1.0 - torch.einsum("ntpa,ntpa->ntp", cj_s, gw)
+    if m2.is_cuda:
+        num, var_i, var_j = _sweep_terms_in_order(g, ci_s, cj_s, cij, ell)
+    else:
+        u_i = torch.einsum("ntab,ntb->nta", g, ci_s)
+        var_i = 1.0 - torch.einsum("nta,nta->nt", ci_s, u_i)
+        num = cij - torch.einsum("ntpl,ntl->ntp", cj_s, u_i)
+        gw = torch.einsum("ntab,ntpb->ntpa", g, cj_s)
+        var_j = 1.0 - torch.einsum("ntpa,ntpa->ntp", cj_s, gw)
     rho = num / torch.sqrt(torch.clamp(var_i[..., None] * var_j, min=1e-20))
     return (fisher_z(rho) <= _f32(tau)) & mask
+
+
+def _tests_s(c, adj, compact, counts, rows, ranks, tau, *, ell: int, n_max: int,
+             jitter: float = DEFAULT_JITTER):
+    """cuPC-S CI tests of the row block ``rows`` (global ids; the block's
+    compact and counts): (sep_found (n_l, T, n′) bool, s_ids (n_l, T, ℓ))."""
+    m2, ci_s, cj_s, cij, mask, s_ids = gather_s(c, adj, compact, counts, rows, ranks, ell=ell,
+                                                n_max=n_max)
+    return ci_sweep(m2, ci_s, cj_s, cij, mask, tau, ell=ell, jitter=jitter), s_ids
+
+
+def _tests_s_cols(c_rows, c_cols, col_pos, adj, compact, counts, rows, ranks, tau, *, ell: int,
+                  n_max: int):
+    """``_tests_s`` reading the row-sharded C layout (``gather_s_cols``)."""
+    m2, ci_s, cj_s, cij, mask, s_ids = gather_s_cols(c_rows, c_cols, col_pos, adj, compact,
+                                                     counts, rows, ranks, ell=ell, n_max=n_max)
+    return ci_sweep(m2, ci_s, cj_s, cij, mask, tau, ell=ell), s_ids
 
 
 def _chunk_ranks(t0, n_chunk: int):
@@ -291,10 +385,9 @@ def chunk_s_tests(c, adj, compact, counts, t0, tau, *, ell: int, n_chunk: int, n
     run ahead of the commits at any depth with equal results."""
     rows = torch.arange(compact.shape[0], dtype=torch.int32, device=adj.device)
     ranks = _chunk_ranks(t0, n_chunk)
-    m2, ci_s, cj_s, cij, mask, s_ids = gather_s(c, adj, compact, counts, rows, ranks,
-                                                ell=ell, n_max=n_max)
-    return _winners(ci_sweep(m2, ci_s, cj_s, cij, mask, tau, ell=ell, jitter=jitter), ranks,
-                    s_ids)
+    sep_found, s_ids = _tests_s(c, adj, compact, counts, rows, ranks, tau, ell=ell, n_max=n_max,
+                                jitter=jitter)
+    return _winners(sep_found, ranks, s_ids)
 
 
 def chunk_s_commit(adj, sep, compact, t_win, removed_slot, s_win, *, ell: int):
@@ -399,6 +492,62 @@ def _global_commit(adj, sep, compact_full, rows_full, t_win, removed_slot, s_win
     slot_ok = torch.arange(lmax, device=adj.device) < ell
     padded = F.pad(s_final, (0, lmax - ell), value=-1)
     return adj_new, torch.where(write & slot_ok, padded, sep)
+
+
+def commit_adj(adj, key_mat):
+    """The replicated half of the commit: symmetric edge removal from the
+    dense winner-key matrix (it sees both endpoints' claims, so it stays
+    replicated when the sepset tensor is row-sharded)."""
+    return adj & ~(torch.minimum(key_mat, key_mat.T) < _imax(key_mat.dtype))
+
+
+def commit_sep_rows(sep_rows, row_ids, adj, key_mat, compact_full, removed_slot, s_win, ell):
+    """Shard-local sepset commit: this shard's block of the (n, n, Lmax)
+    sepset tensor from the full-width winners, ``_global_commit``'s writes
+    restricted to its rows. A local row i takes its own winner slots
+    (scattered by target j) and every row g's winner slot that targets i
+    (the transposed claim); the tie-break ``key_own <= key_oth`` is
+    ``_global_commit``'s ``use_own``, so both layouts commit equal sepsets.
+
+    sep_rows (n_l, n, Lmax); row_ids (n_l,) global ids, contiguous (ids
+    ≥ n are pad rows, whose writes are masked); adj (n, n) the pre-commit
+    adjacency; key_mat (n, n) from ``_commit_key_mat``; compact_full,
+    removed_slot (n, n′) and s_win (n, n′, ℓ) the gathered winners.
+    Returns the updated (n_l, n, Lmax) block."""
+    n = adj.shape[0]
+    n_l = sep_rows.shape[0]
+    dev = sep_rows.device
+    big = _imax(key_mat.dtype)
+    rid = row_ids.clamp(0, n - 1).long()
+    valid_row = row_ids < n
+    key_own = key_mat[rid]  # (n_l, n): the local rows' claims
+    key_oth = key_mat.T[rid]  # (n_l, n): the other endpoints' claims
+    use_own = key_own <= key_oth
+    newly_removed = torch.minimum(key_own, key_oth) < big
+
+    # own claims by target column; losers write the dump column n
+    loc = torch.arange(n_l, device=dev)
+    j_write = torch.where(removed_slot[rid], torch.clamp(compact_full[rid], 0, n - 1), n)
+    s_own = torch.zeros((n_l, n + 1, ell), dtype=torch.int32, device=dev)
+    s_own[loc[:, None], j_write.long()] = s_win[rid].to(torch.int32)
+    s_own = s_own[:, :n]
+
+    # transposed claims: row g's winner slot targets compact_full[g, p];
+    # those landing in this shard scatter to (target − first row, g), the
+    # rest to the dump row n_l
+    t_loc = torch.clamp(compact_full, 0, n - 1) - row_ids[0]
+    in_shard = removed_slot & (t_loc >= 0) & (t_loc < n_l)
+    t_loc = torch.where(in_shard, t_loc, n_l).long()
+    g = torch.arange(compact_full.shape[0], device=dev)[:, None].expand_as(t_loc)
+    s_oth = torch.zeros((n_l + 1, n, ell), dtype=torch.int32, device=dev)
+    s_oth[t_loc, g] = s_win.to(torch.int32)
+    s_oth = s_oth[:n_l]
+
+    s_final = torch.where(use_own[..., None], s_own, s_oth)
+    write = (newly_removed & adj[rid] & valid_row[:, None])[..., None]
+    lmax = sep_rows.shape[-1]
+    slot_ok = torch.arange(lmax, device=dev) < ell
+    return torch.where(write & slot_ok, F.pad(s_final, (0, lmax - ell), value=-1), sep_rows)
 
 
 def _commit(adj, sep, compact, sep_found, ranks, s_ids_shared, ell, s_ids_per_edge=None):

@@ -69,6 +69,12 @@ struct Fused {
     int j;
     float cij;
   };
+  // a row id ≥ n (a pad row of a sharded block: count 0, list all −1)
+  // reads row n − 1, as the gather clamps it; none of its slots is open
+  __device__ long long row(long long loc) const {
+    const int r = rows[loc];
+    return r < n ? r : n - 1;
+  }
   __device__ int row_sets(long long loc) const {
     const int k = counts[loc];
     return k < 0 ? 0 : (k > n_max ? n_max : k);
@@ -83,7 +89,7 @@ struct Fused {
   }
   // the set of a valid rank (unrank.cuh) and what its inverse reads of C
   __device__ void stage(long long loc, int t, float m[L][L], float ci[L], int* ids) const {
-    const long long i = rows[loc];
+    const long long i = row(loc);
     unrank_set<L>(compact + loc * npr, row_sets(loc), launch_first_rank(t0, t0_wide) + t, table,
                   table_width, n, ids);
 #pragma unroll
@@ -97,7 +103,7 @@ struct Fused {
   // j clipped to [0, n-1] as the gather clips it; false for a padded
   // slot or a removed edge, which no rank can separate
   __device__ bool slot(long long loc, int p, Slot& sl) const {
-    const long long i = rows[loc];
+    const long long i = row(loc);
     const int jc = compact[loc * npr + p];
     sl.j = jc < 0 ? 0 : (jc < n ? jc : n - 1);
     sl.cij = c[i * n + sl.j];

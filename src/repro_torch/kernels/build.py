@@ -175,8 +175,14 @@ def launch(kernel: str, symbol: str, device: torch.device, *args, kernels: int =
     """Call one exported launcher on PyTorch's current stream of
     ``device``, raise on a refused launch, and count the ``kernels``
     launches it made under ``kernel``."""
-    stream = _current_stream(device)
-    rc = getattr(library().lib, symbol)(*args, stream)
+    fn = getattr(library().lib, symbol)
+    if device.index is not None and device.index != torch.cuda.current_device():
+        # a kernel launches on the runtime's current device: make it the
+        # stream's own (a sharded run issues to every card of its mesh)
+        with torch.cuda.device(device):
+            rc = fn(*args, _current_stream(device))
+    else:
+        rc = fn(*args, _current_stream(device))
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed with cudaError_t {rc}")
     LAUNCHES[kernel] += kernels

@@ -2,8 +2,10 @@
 ``src/repro/kernels/ops.py``: ``correlation``, ``level0`` (and
 ``level0_span``, the driver's whole level-0 span),
 ``level1_dense``, ``ci_shared``, ``chunk_s_kernel``, ``ci_shared_grid``,
-``chunk_s_grid`` and ``gsq``; and ``chunk_s_two_launch``, the
-reference's two-kernel chunk.
+``chunk_s_grid`` and ``gsq``; the sharded grid engine's tests halves
+``chunk_s_grid_tests`` (replicated C) and ``chunk_s_grid_tests_cols``
+(row-sharded C); and ``chunk_s_two_launch``, the reference's two-kernel
+chunk.
 
 Each wrapper runs its CUDA kernel for CUDA tensors and the kernel's plain
 PyTorch version for CPU tensors. Unlike the reference, nothing is padded
@@ -108,6 +110,36 @@ def _grid_winners(t_loc, s_win, t0):
     found = t_loc < _sgrid.SENTINEL
     t_win = torch.where(found, t0 + t_loc.to(t0.dtype), L._imax(t0.dtype))
     return t_win, found, s_win
+
+
+def chunk_s_grid_tests(c, adj, compact, counts, rows, t0, tau, *, ell, n_chunk, n_max,
+                       c_t=None):
+    """The tests half of the grid engine for a row block (a shard's rows,
+    global ids ``rows``; ids ≥ n are pad rows with count 0): ranks
+    [t0, t0 + n_chunk) in one fused sgrid launch over the whole C (and Cᵀ,
+    ``c_t``, made per call when not given). Returns the ``chunk_s_tests``
+    contract (t_win (n_l, n′), removed_slot (n_l, n′) bool, s_win
+    (n_l, n′, ℓ)); the plain version on the CPU."""
+    t_loc, s_win = _sgrid.sgrid_fused(c, adj, compact, counts, rows, t0, tau, ell=ell,
+                                      n_chunk=n_chunk, n_max=n_max, c_t=c_t)
+    return _grid_winners(t_loc, s_win, t0)
+
+
+def chunk_s_grid_tests_cols(c_rows, c_cols, col_pos, adj, compact, counts, rows, t0, tau, *,
+                            ell, n_chunk, n_max):
+    """``chunk_s_grid_tests`` for the ROW-SHARDED C layout: the fused entry
+    reads a whole C, which no shard holds, so the sets and values come from
+    ``levels.gather_s_cols`` (the shard's rows of C and the gathered active
+    columns) and go through sgrid's gathered entry (``ci_shared_grid``),
+    the reference's own route. The same contract and winners."""
+    from repro_torch.core import levels as L
+
+    ranks = L._chunk_ranks(t0, n_chunk)
+    m2, ci_s, cj_s, cij, mask, s_ids = L.gather_s_cols(c_rows, c_cols, col_pos, adj, compact,
+                                                       counts, rows, ranks, ell=ell,
+                                                       n_max=n_max)
+    t_loc, s_win = ci_shared_grid(m2, ci_s, cj_s, cij, mask, s_ids, tau, ell=ell)
+    return _grid_winners(t_loc, s_win, t0)
 
 
 def _commit_winners(winners_fn, c, adj, sep, compact, counts, t0, tau, *, ell, n_chunk, n_max):

@@ -22,10 +22,19 @@ runs the bootstrap ensemble on the configured dataset and reports edge
 frequencies and the stability-selected CPDAG.
 
 ``--journal PATH`` turns obs on for the run and writes its spans to PATH
-(JSONL). The multi-device flags of the reference (``--devices``,
-``--mesh``, ``--shard-batch``, ``--shard-c``, ``--shard-sep``,
-``--speculate``, ``--no-cache-cols``) exit with status 2: the port has no
-multi-device layer yet (ROADMAP Queue 1 item 12).
+(JSONL).
+
+Multi-device (``core/distributed.py``, ``core/sharding.py``), the
+reference's flags: ``--devices K`` runs the row-sharded distributed
+engine on K devices (the first K cards; with ``--device cpu``, K logical
+CPU shards); ``--shard-c`` row-shards C as well, with a per-run
+hot-column cache (``--no-cache-cols`` gathers the columns every chunk);
+``--shard-sep`` row-shards the sepset tensor; ``--pipeline-depth D``
+keeps D chunks' tests in flight; ``--speculate`` (with ``--engine
+S-grid``) issues each level's first launch before the level's max-degree
+read resolves. ``--mesh K`` builds a K-device mesh; ``--shard-batch``
+shards the B axis of ``--batch``/``--bootstrap`` over it (all visible
+cards, or ``--devices``/``--mesh`` shards).
 """
 from __future__ import annotations
 
@@ -40,26 +49,36 @@ from ..obs import MonotonicClock
 
 _CLK = MonotonicClock()  # the obs timing seam
 
-#: the reference's multi-device flags, which the port refuses
-MULTI_DEVICE_FLAGS = ("devices", "mesh", "shard_batch", "shard_c", "shard_sep", "speculate",
-                      "no_cache_cols")
+
+def _sync(device, mesh=None) -> None:
+    import torch
+
+    for dev in (mesh.distinct() if mesh is not None else (device,)):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        import torch
+def _batch_mesh(args, device):
+    """The mesh of --shard-batch runs (None when sharding is off): --mesh
+    or --devices shards, else every visible card."""
+    if not args.shard_batch:
+        return None
+    from ..core.sharding import make_mesh, mesh_size
 
-        torch.cuda.synchronize(device)
+    mesh = make_mesh(args.mesh or args.devices or None, device=device)
+    print(f"[pc_run] batch axis sharded over {mesh_size(mesh)} devices")
+    return mesh
 
 
 def _run_bootstrap(args, x, n, m, d, alpha, device):
     """--bootstrap N: the ensemble on the configured dataset."""
     from ..batch.ensemble import bootstrap_pc
 
+    mesh = _batch_mesh(args, device)
     t0 = _CLK.now()
     run = bootstrap_pc(x, n_boot=args.bootstrap, alpha=alpha,
                        stability_threshold=args.stability_threshold, max_level=args.max_level,
-                       seed=args.seed, corr=args.corr, device=device)
+                       seed=args.seed, corr=args.corr, mesh=mesh, device=device)
     dt = _CLK.now() - t0
     freq = run.edge_freq[np.triu_indices(n, 1)]
     n_stable = len(run.stable_edges())
@@ -84,7 +103,8 @@ def _run_bootstrap(args, x, n, m, d, alpha, device):
 
 def _run_batch(args, n, m, d, alpha, device):
     """--batch B: B synthetic datasets through one ``pc_scan_batch`` call
-    at the schedule ``plan_schedule`` finds, timed after a first call."""
+    at the schedule ``plan_schedule`` finds, timed after a first call;
+    sharded over the mesh with --shard-batch."""
     import torch
 
     from ..batch.scan_pc import DEFAULT_MAX_LEVEL, plan_schedule
@@ -97,13 +117,15 @@ def _run_batch(args, n, m, d, alpha, device):
                                     dtype=torch.float32, device=device), args.corr)
         for b in range(args.batch)
     ])
+    mesh = _batch_mesh(args, device)
     max_level = args.max_level if args.max_level is not None else DEFAULT_MAX_LEVEL
-    schedule = plan_schedule(cs, m, alpha=alpha, max_level=max_level, device=device)
-    res = batch_run(cs, m, alpha=alpha, max_level=max_level, n_prime=schedule, device=device)
-    _sync(device)  # the first call (on the card: the program's recording)
+    schedule = plan_schedule(cs, m, alpha=alpha, max_level=max_level, mesh=mesh, device=device)
+    run = dict(alpha=alpha, max_level=max_level, n_prime=schedule, mesh=mesh, device=device)
+    res = batch_run(cs, m, **run)
+    _sync(device, mesh)  # the first call (on the card: the programs' recording)
     t0 = _CLK.now()
-    res = batch_run(cs, m, alpha=alpha, max_level=max_level, n_prime=schedule, device=device)
-    _sync(device)
+    res = batch_run(cs, m, **run)
+    _sync(device, mesh)
     dt = _CLK.now() - t0
     edges = res.adj.sum(dim=(1, 2)).cpu().numpy() // 2
     print(f"[pc_run] batch B={args.batch} max_level={max_level} widths={schedule}")
@@ -161,28 +183,33 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--json", default=None)
     ap.add_argument("--journal", default=None, metavar="PATH",
                     help="enable obs and write the run's trace spans to PATH (JSONL)")
-    multi = ap.add_argument_group(
-        "multi-device (refused: ROADMAP Queue 1 item 12)",
-        "the reference's sharded paths; the port exits with status 2 on any of them")
-    multi.add_argument("--devices", type=int, default=0)
-    multi.add_argument("--mesh", type=int, default=0)
-    multi.add_argument("--shard-batch", action="store_true")
-    multi.add_argument("--shard-c", action="store_true")
-    multi.add_argument("--shard-sep", action="store_true")
-    multi.add_argument("--speculate", action="store_true")
-    multi.add_argument("--no-cache-cols", action="store_true")
+    ap.add_argument("--devices", type=int, default=0,
+                    help=">0: distributed over rows on K devices (with --device cpu, K "
+                         "logical CPU shards)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help=">0: build a flat K-device mesh (core/sharding.py) for the sharded "
+                         "paths; 0 uses all visible cards when a sharded flag asks for one")
+    ap.add_argument("--shard-batch", action="store_true",
+                    help="shard the leading B axis of --batch/--bootstrap over the mesh")
+    ap.add_argument("--shard-c", action="store_true",
+                    help="row-shard the correlation matrix in the distributed engine "
+                         "(per-device C memory O(n*k + n^2/n_dev) instead of O(n^2))")
+    ap.add_argument("--shard-sep", action="store_true",
+                    help="row-shard the sepset tensor in the distributed engine and commit "
+                         "winners shard-locally (O(n^2*depth/n_dev) a device)")
+    ap.add_argument("--speculate", action="store_true",
+                    help="with --devices/--mesh and --engine S-grid: issue level l+1's first "
+                         "launch under level l's width before the max-degree read resolves "
+                         "(equal results)")
+    ap.add_argument("--no-cache-cols", action="store_true",
+                    help="disable the per-run hot-column cache of --shard-c runs (gather "
+                         "C[:, cols] in every chunk)")
     return ap
 
 
 def main(argv=None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
-    asked = [f"--{f.replace('_', '-')}" for f in MULTI_DEVICE_FLAGS if getattr(args, f)]
-    if asked:
-        print(f"[pc_run] {', '.join(asked)}: the port has no multi-device layer yet (ROADMAP "
-              "Queue 1 item 12, multi-device); run without it on one device", file=sys.stderr)
-        return 2
-
     from .. import device as D
     from .. import obs
 
@@ -204,7 +231,8 @@ def _main(args, device) -> None:
     else:
         n, m, d, alpha = args.n, args.m, args.d, args.alpha
 
-    print(f"[pc_run] n={n} m={m} density={d} engine=cuPC-{args.engine}")
+    print(f"[pc_run] n={n} m={m} density={d} engine=cuPC-{args.engine}"
+          + (f" devices={args.devices}" if args.devices else ""))
 
     if args.batch:  # generates its own B datasets; skip the single-run one
         _run_batch(args, n, m, d, alpha, device)
@@ -214,12 +242,15 @@ def _main(args, device) -> None:
         _run_bootstrap(args, x, n, m, d, alpha, device)
         return
 
-    from ..core.pc import pc
-
     t0 = _CLK.now()
-    run = pc(x, alpha=alpha, engine=args.engine, max_level=args.max_level, corr=args.corr,
-             bucket=not args.no_bucket, pipeline_depth=args.pipeline_depth, device=device,
-             wide_ranks=True)
+    if args.devices or args.mesh or args.shard_c or args.shard_sep:
+        run = _run_distributed(args, x, alpha, device)
+    else:
+        from ..core.pc import pc
+
+        run = pc(x, alpha=alpha, engine=args.engine, max_level=args.max_level, corr=args.corr,
+                 bucket=not args.no_bucket, pipeline_depth=args.pipeline_depth, device=device,
+                 wide_ranks=True)
     dt = _CLK.now() - t0
 
     n_edges = int(run.adj.sum()) // 2
@@ -235,6 +266,40 @@ def _main(args, device) -> None:
             "n": n, "m": m, "density": d, "engine": args.engine, "edges": n_edges,
             "levels": run.levels_run, "timings_s": run.timings_s, "total_s": dt,
         })
+
+
+def _run_distributed(args, x, alpha, device):
+    """--devices/--mesh/--shard-c/--shard-sep: ``pc_distributed`` over the
+    mesh, with the reference launcher's lines."""
+    from ..core.distributed import pc_distributed
+    from ..core.sharding import mesh_size
+    from .mesh import make_pc_mesh
+
+    dist_engine = args.engine if args.engine in ("S", "S-grid") else "S"
+    if args.engine not in ("auto", "S", "S-grid"):
+        print("[pc_run] note: --devices supports --engine S / S-grid (sharded cuPC-S); "
+              "other --engine selections apply to single-device runs only")
+    if args.speculate and dist_engine != "S-grid":
+        print("[pc_run] warning: --speculate requires --engine S-grid; ignoring it for this "
+              "run")
+    mesh = make_pc_mesh(args.devices or args.mesh or None, device=device)
+    if dist_engine == "S-grid":
+        print("[pc_run] grid-resident engine: one fused tests+commit launch per level"
+              + (" + speculative next-level dispatch" if args.speculate else ""))
+    if args.shard_c:
+        print(f"[pc_run] correlation matrix row-sharded over {mesh_size(mesh)} devices"
+              + (" (hot-column cache off)" if args.no_cache_cols else ""))
+    if args.shard_sep:
+        print(f"[pc_run] sepset tensor row-sharded over {mesh_size(mesh)} devices "
+              "(shard-local commit)")
+    if args.pipeline_depth > 1:
+        print(f"[pc_run] chunk dispatch pipelined, depth {args.pipeline_depth}")
+    return pc_distributed(x, alpha=alpha, mesh=mesh, max_level=args.max_level,
+                          bucket=not args.no_bucket, shard_c=args.shard_c,
+                          shard_sep=args.shard_sep, cache_cols=not args.no_cache_cols,
+                          pipeline_depth=args.pipeline_depth, engine=dist_engine,
+                          speculate=args.speculate and dist_engine == "S-grid",
+                          corr=args.corr, wide_ranks=True)
 
 
 if __name__ == "__main__":

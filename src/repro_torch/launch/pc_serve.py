@@ -18,9 +18,9 @@ Observability: ``--journal PATH`` turns obs on and streams every service
 event as a JSONL ``serve`` record; ``--metrics-port N`` serves the
 service registry in the Prometheus text format at
 ``http://localhost:N/metrics`` for the run's duration; ``--dump-metrics``
-prints the same exposition on exit. ``--shard`` (slots over a device
-mesh) exits with status 2: the port has no multi-device layer yet
-(ROADMAP Queue 1 item 12).
+prints the same exposition on exit. ``--shard`` shards every slot's
+batch axis over a device mesh (``core/sharding.py``): all visible cards,
+or ``--devices K`` logical shards (K CPU shards with ``--device cpu``).
 
 :func:`serve` is the arrival loop; it returns the service and its report,
 so that a caller (``chip_smoke.py``) can inspect them.
@@ -72,11 +72,23 @@ def stream(args) -> list:
 
 def make_service(args):
     """The PCService of ``args``: on a ManualClock with the demo fault plan
-    under ``--faults``, else on the real clock with no faults."""
+    under ``--faults``, else on the real clock with no faults; with
+    ``--shard`` its slots sharded over the mesh of :func:`shard_mesh`."""
     from ..serve import ManualClock, PCService, ServeConfig
 
     kw = dict(clock=ManualClock(), faults=fault_plan()) if args.faults else {}
-    return PCService(ServeConfig(slot_size=args.slot_size), device=args.device, **kw)
+    mesh = shard_mesh(args) if args.shard else None
+    return PCService(ServeConfig(slot_size=args.slot_size, mesh=mesh), device=args.device, **kw)
+
+
+def shard_mesh(args):
+    """``--shard``'s mesh: ``--devices K`` shards on ``--device`` (K CPU
+    shards on the CPU), else every visible card."""
+    from ..core import sharding as S
+
+    mesh = S.make_mesh(args.devices or None, device=args.device)
+    print(f"[pc_serve] sharding slots over {S.mesh_size(mesh)} devices")
+    return mesh
 
 
 def serve(svc, reqs, *, submit_all: bool = False):
@@ -157,8 +169,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card (cpu runs the plain versions)")
     ap.add_argument("--shard", action="store_true",
-                    help="shard slots over all visible devices (refused: ROADMAP Queue 1 "
-                         "item 12)")
+                    help="shard every slot's batch axis over all visible devices")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="with --shard: K logical shards (K CPU shards with --device cpu) "
+                         "instead of every visible card")
     ap.add_argument("--faults", action="store_true",
                     help="inject the demo fault plan (ManualClock)")
     ap.add_argument("--journal", default=None, metavar="PATH",
@@ -172,11 +186,6 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
-    if args.shard:
-        print("[pc_serve] --shard: the port has no multi-device layer yet (ROADMAP Queue 1 "
-              "item 12, multi-device); run without it on one device", file=sys.stderr)
-        return 2
-
     from .. import obs
 
     scope = (obs.scoped(enabled=True, journal_path=args.journal) if args.journal

@@ -48,8 +48,10 @@ a journal path, every service event is also journaled as a ``serve``
 record.
 
 device: None means the CUDA card (raises without one); "cpu" runs the
-plain versions of the kernels. ``ServeConfig.mesh`` must be None: the
-multi-device layer is ROADMAP Queue 1 item 12.
+plain versions of the kernels. ``ServeConfig.mesh`` (``core/sharding.py``)
+shards every slot's batch axis over its devices, with graphs bitwise
+equal to an unsharded service's; the service's own work (admission, the
+solo and float64 rungs) stays on ``device``.
 """
 from __future__ import annotations
 
@@ -60,7 +62,7 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..batch.scan_pc import _no_mesh, pc_scan, pc_scan_batch, plan_schedule
+from ..batch.scan_pc import pc_scan, pc_scan_batch, plan_schedule
 from ..core import levels as L
 from ..core.stable_ref import pc_stable_skeleton
 from .admission import AdmissionPolicy, AdmissionQueue
@@ -84,8 +86,8 @@ class ServeConfig:
     """Dispatch-loop knobs. ``jitter_ladder[k]`` is the regularisation of
     widening rung k (rung 0 = every engine's baseline, so fault-free
     slots stay bitwise the offline path); ``backoff_s`` seeds the
-    exponential retry backoff; ``mesh`` (sharding every slot's batch
-    axis) must be None in the port."""
+    exponential retry backoff; ``mesh`` shards every slot's batch axis
+    over a device mesh (``core/sharding.py``)."""
 
     slot_size: int = 8
     widen_attempts: int = 2
@@ -94,9 +96,6 @@ class ServeConfig:
     cell_budget: int = L.DEFAULT_CELL_BUDGET
     orient: bool = True
     mesh: object = None
-
-    def __post_init__(self):
-        _no_mesh(self.mesh)
 
 
 class PCService:

@@ -237,14 +237,30 @@ def test_plan_n_prime_matches_reference_and_bounds_level0():
         jscan.plan_n_prime(jnp.asarray(cs), m, tau0=tau_b)
 
 
-def test_mesh_is_refused_with_its_roadmap_item():
-    cs = np.stack([np.eye(4, dtype=np.float32)] * 2)
-    for call in (lambda: scan_pc.pc_scan_batch(cs, 100, mesh=object(), device=CPU),
-                 lambda: scan_pc.scan_levels_batch(cs, 100, mesh=object(), device=CPU),
-                 lambda: scan_pc.alpha_sweep(cs[0], 100, (0.01,), mesh=object(), device=CPU),
-                 lambda: engines.batch_run(cs, 100, mesh=object(), device=CPU)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            call()
+def test_mesh_runs_equal_mesh_none():
+    """Every batch entry with ``mesh=`` (3 CPU shards, B = 5: one identity
+    pad lane) is bitwise its ``mesh=None`` run; the bootstrap's replicate
+    axis (n_boot = 7) too."""
+    from repro_torch.core.sharding import make_mesh
+
+    mesh = make_mesh(3, device=CPU)
+    m = 1500
+    cs = np.stack([_corr(16, m, 0.2, seed) for seed in range(5)])
+    calls = {
+        "pc_scan_batch": lambda **kw: scan_pc.pc_scan_batch(cs, m, max_level=3, **kw),
+        "scan_levels_batch": lambda **kw: scan_pc.scan_levels_batch(cs, m, max_level=3, **kw)[0],
+        "alpha_sweep": lambda **kw: scan_pc.alpha_sweep(cs[0], m, (0.001, 0.01, 0.05, 0.1),
+                                                        **kw),
+        "batch_run": lambda **kw: engines.batch_run(cs, m, level_sync=True, max_level=2, **kw)[0],
+    }
+    for call in calls.values():
+        _assert_scan_equal(call(mesh=mesh), call(device=CPU))
+    x, _ = sample_gaussian_dag(n=14, m=1000, density=0.15, seed=2)
+    one = ensemble.bootstrap_pc(x, n_boot=7, max_level=2, seed=0, device=CPU)
+    sharded = ensemble.bootstrap_pc(x, n_boot=7, max_level=2, seed=0, mesh=mesh)
+    for f in ("edge_freq", "adj", "cpdag", "replicate_adj", "replicate_ok"):
+        np.testing.assert_array_equal(getattr(sharded, f), getattr(one, f), err_msg=f)
+    assert sharded.schedule == one.schedule
 
 
 # ----------------------------------------------------------- orientation

@@ -16,7 +16,11 @@ port's runs (``--device cpu``, in-process ``main``) go on meanwhile:
   ROADMAP Queue 3, standing deviations);
 * ``pc_serve --faults``: the same rejected, dead-letter, retry, tier and
   latency lines (the wall-clock numbers aside);
-* every multi-device flag exits non-zero naming ROADMAP Queue 1 item 12.
+* each multi-device flag under ``--devices 2`` (the port with
+  ``--device cpu``: two CPU shards; the reference in a fifth subprocess
+  with two forced host devices): the same lines, wall-clock timings
+  aside, and equal ``edges`` and ``levels``;
+* ``pc_serve --shard``: the same graphs as the unsharded service.
 """
 import json
 import os
@@ -25,6 +29,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -38,14 +43,25 @@ ENGINES = ("auto", "S", "E", "S-grid", "scan")
 SINGLE = ("--n", "40", "--m", "2000", "--d", "0.15")
 BATCH = ("--batch", "4", "--n", "24", "--m", "2000", "--d", "0.15")
 BOOT = ("--bootstrap", "4", "--n", "24", "--m", "2000", "--d", "0.15", "--seed", "3")
-MULTI_DEVICE = (("--devices", "2"), ("--mesh", "2"), ("--shard-batch",), ("--shard-c",),
-                ("--shard-sep",), ("--speculate",), ("--no-cache-cols",))
+DIST = ("--n", "24", "--m", "2000", "--d", "0.15", "--devices", "2")
+# each reference multi-device flag under --devices 2, with what it acts on
+MULTI_DEVICE = {
+    "devices": (),
+    "mesh": ("--mesh", "2"),
+    "shard-batch": ("--shard-batch", "--batch", "4"),
+    "shard-c": ("--shard-c",),
+    "shard-sep": ("--shard-sep", "--pipeline-depth", "2"),
+    "speculate": ("--engine", "S-grid", "--speculate"),
+    "no-cache-cols": ("--shard-c", "--no-cache-cols"),
+}
 
-# runs repro.launch.pc_run.main once per argv list (its parser reads sys.argv)
+# runs repro.launch.pc_run.main once per argv list (its parser reads sys.argv),
+# each run's stdout after a marker line
 _RUNNER = """
 import json, sys
 from repro.launch import pc_run
 for argv in json.loads(sys.argv[1]):
+    print("=== run", flush=True)
     sys.argv = ["pc_run", *argv]
     pc_run.main()
 """
@@ -68,6 +84,13 @@ class _Reference:
         self.serve = subprocess.Popen([sys.executable, "-m", "repro.launch.pc_serve", "--faults"],
                                       env=env, cwd=str(out), stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True)
+        self.multi = subprocess.Popen(
+            [sys.executable, "-c", _RUNNER,
+             json.dumps([[*DIST, *flags, "--json", str(out / f"multi-{k}.json")]
+                         for k, flags in MULTI_DEVICE.items()])],
+            env={**env, "XLA_FLAGS": "--xla_force_host_platform_device_count=2"},
+            cwd=str(out), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self._multi = None
         self._done = False
 
     def _argv(self, kind):
@@ -89,13 +112,23 @@ class _Reference:
         self.wait()
         return json.loads((self.out / f"{kind}.json").read_text())
 
+    def multi_run(self, kind) -> tuple:
+        """(stdout lines, json record) of the reference's --devices 2 run."""
+        if self._multi is None:
+            out, err = self.multi.communicate(timeout=900)
+            assert self.multi.returncode == 0, err[-3000:]
+            runs = out.split("=== run\n")[1:]
+            self._multi = dict(zip(MULTI_DEVICE, runs))
+        rec = json.loads((self.out / f"multi-{kind}.json").read_text())
+        return self._multi[kind], rec
+
     def serve_stdout(self) -> str:
         out, err = self.serve.communicate(timeout=600)
         assert self.serve.returncode == 0, err[-3000:]
         return out
 
     def close(self):
-        for p in (*self.procs, self.serve):
+        for p in (*self.procs, self.serve, self.multi):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
@@ -153,15 +186,47 @@ def test_pc_run_bootstrap_repeats_and_keeps_the_reference_keys(reference, tmp_pa
     assert sum(phases.values()) <= first["total_s"]
 
 
-@pytest.mark.parametrize("flags", MULTI_DEVICE, ids=lambda f: f[0])
-def test_pc_run_refuses_multi_device(flags, capsys):
-    assert pc_run.main([*SINGLE, "--device", "cpu", *flags]) != 0
-    assert "ROADMAP Queue 1 item 12" in capsys.readouterr().err
+def _steady_lines(text: str) -> list:
+    """pc_run's lines without the wall-clock ones (timings, totals, rates)."""
+    wall = re.compile(r"^\s+(\S+: +[0-9.]+ ms|total: [0-9.]+ s|steady-state: .*)$")
+    return [ln for ln in text.splitlines() if ln.strip() and not wall.match(ln)]
 
 
-def test_pc_serve_refuses_shard(capsys):
-    assert pc_serve.main(["--shard", "--device", "cpu"]) != 0
-    assert "ROADMAP Queue 1 item 12" in capsys.readouterr().err
+@pytest.mark.parametrize("kind", MULTI_DEVICE)
+def test_pc_run_multi_device_flag_matches_reference(kind, reference, tmp_path, capsys):
+    path = tmp_path / "port.json"
+    argv = [*DIST, *MULTI_DEVICE[kind], "--device", "cpu", "--json", str(path)]
+    assert pc_run.main(argv) == 0
+    got_lines = _steady_lines(capsys.readouterr().out)
+    got = json.loads(path.read_text())
+    want_out, want = reference.multi_run(kind)
+    assert got_lines == _steady_lines(want_out)
+    assert sorted(got) == sorted(want)
+    for key in ("edges", "levels", "schedule"):
+        assert got.get(key) == want.get(key), key
+
+
+def test_pc_serve_shard_equals_unsharded(capsys):
+    """--shard --devices 2 on the CPU: the same outcome lines as the
+    unsharded service and every graph equal (the fault stream on a
+    ManualClock, so nothing depends on the wall clock)."""
+    argv = ["--faults", "--device", "cpu", "--requests", "6"]
+    args = pc_serve.parser().parse_args([*argv, "--shard", "--devices", "2"])
+    sharded = pc_serve.serve(pc_serve.make_service(args), pc_serve.stream(args),
+                             submit_all=True)[1]
+    assert "[pc_serve] sharding slots over 2 devices" in capsys.readouterr().out
+    plain_args = pc_serve.parser().parse_args(argv)
+    plain = pc_serve.serve(pc_serve.make_service(plain_args), pc_serve.stream(plain_args),
+                           submit_all=True)[1]
+    assert sharded.steps == plain.steps and sharded.rejections.keys() == plain.rejections.keys()
+    assert {k: sorted(v) for k, v in sharded.delivered.items()} == \
+        {k: sorted(v) for k, v in plain.delivered.items()}
+    for rid, lanes in plain.delivered.items():
+        for lane, want in lanes.items():
+            for f in ("adj", "cpdag", "sepsets", "tier"):
+                np.testing.assert_array_equal(getattr(sharded.delivered[rid][lane], f),
+                                              getattr(want, f), err_msg=f"{rid}/{lane} {f}")
+    assert pc_serve.main([*argv, "--shard", "--devices", "2"]) == 0
 
 
 def _outcome_lines(text: str) -> list:

@@ -3,7 +3,9 @@ package's ``repro.serve`` on the same requests.
 
 Every scenario of tests/test_serve.py but the sharded one runs through
 both services on a ManualClock with the same FaultPlan and the same
-Requests; the port runs on the CPU (``device="cpu"``). Both services
+Requests; the port runs on the CPU (``device="cpu"``), three of them
+also with its slots sharded over two CPU shards (``ServeConfig(mesh=)``;
+the sharded scenario itself is in tests/test_torch_sharding.py). Both services
 build C from the samples the same way: the port's admission is handed
 the JAX package's ``correlation_from_samples`` (the two frameworks' fp32
 matmuls round differently in the last bits, and a bit of C may move a
@@ -280,10 +282,18 @@ def test_port_admission_correlation():
         np.testing.assert_array_equal(getattr(g, f), getattr(solo, f).numpy(), err_msg=f)
 
 
-def test_sharded_config_refused():
-    """The port has no multi-device layer: a mesh is refused, not ignored."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tserve.ServeConfig(mesh=object())
+@pytest.mark.parametrize("scenario", [sc_forced_cert_miss, sc_deadline_during_slot,
+                                      sc_alpha_sweep], ids=lambda f: f.__name__[3:])
+def test_sharded_service_matches_reference(scenario, same_c):
+    """``ServeConfig(mesh=)``: slots sharded over 2 CPU shards give the
+    reference's unsharded report (graphs bitwise, events, latencies and
+    metrics text equal)."""
+    from repro_torch.core.sharding import make_mesh
+
+    mk = _maker(tserve)
+    mesh = make_mesh(2, device=CPU)
+    port = scenario(tserve, lambda **kw: mk(mesh=mesh, **kw))
+    _assert_reports_equal(port, scenario(jserve, _maker(jserve)))
 
 
 def test_service_without_a_card_raises():
