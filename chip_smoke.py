@@ -132,7 +132,19 @@ Phases, each of which exits non-zero on failure:
    (18 replicates of (a)'s lane 0: an identity-lane pad) with ``mesh=``,
    bitwise their ``mesh=None`` runs; (b)'s stream through
    ``PCService(ServeConfig(mesh=))``, every graph bitwise the unsharded
-   service's. The phase prints its seconds.
+   service's. The phase prints its seconds;
+9. contracts (``repro_torch.analysis``, ``python -m repro_torch.analysis``):
+   layers 1–3 of the port's contract suite on the card, gated on
+   ``analysis_baseline_torch.json`` (no finding outside it, no stale
+   entry): the AST rules over ``src/repro_torch``; every entry point's
+   hand-kernel count against the declared table, its float64 ops and its
+   ``torch.cuda.set_sync_debug_mode("warn")`` warnings (none outside the
+   allowlisted seams), the engines' live-run stats and the recorded
+   ``pc_scan`` program's graph census; each kernel entry under a poisoned
+   allocator (0xFF, 0x00), twice on the same inputs, against its plain
+   version, and every entry function's ptxas registers, stack, spills and
+   shared memory beside the card's name and power limit. The phase
+   prints its seconds.
 
 The last two lines are a ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -896,6 +908,7 @@ def main() -> int:
     boot = batch(torch, card)
     svc = serving(torch, card, auto, auto56, boot)
     multi_device(torch, card, svc)
+    contracts(torch, card)
 
     sources = {"corr": ("src/repro_torch/csrc/corr.cu", "src/repro/kernels/corr.py:38"),
                "level0": ("src/repro_torch/csrc/level0.cu", "src/repro/kernels/level0.py:28"),
@@ -1303,27 +1316,14 @@ def spent(torch, t0):
     return time.monotonic() - t0
 
 
-# the hand kernels by (a part of) their symbol, under the names they are
-# counted by; PyTorch's own reduce_kernel lives in at::native
-KERNEL_NAMES = (("level0_kernel", "level0"), ("level1_kernel", "level1"), ("gsq_kernel", "gsq"),
-                ("syrk_kernel", "corr"), ("reduce_kernel", "corr"), ("cholinv_kernel", "cholinv"),
-                ("cisweep_kernel", "cisweep"), ("CholinvMath", "skernel"), ("SgridMath", "sgrid"))
-
-
-def kernel_label(symbol):
-    """The ``build.LAUNCHES`` name of a hand kernel's (mangled or plain)
-    symbol, None for any other kernel."""
-    if "at::" in symbol or "2at6native" in symbol:
-        return None
-    return next((name for part, name in KERNEL_NAMES if part in symbol), None)
-
-
 def kernel_time(torch, fn):
     """(summed device time in ms of the kernels that one call of ``fn``
     runs, their count, the hand kernels among them counted by the names of
     ``build.LAUNCHES``) from a ``torch.profiler`` trace after a warm call;
     (None, 0, {}) when the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis.cuda import kernel_label
 
     fn()
     torch.cuda.synchronize()
@@ -1342,47 +1342,6 @@ def kernel_time(torch, fn):
             traced)
 
 
-def graph_kernels(prog):
-    """(the hand kernels among a recorded program's kernel nodes, by
-    ``build.LAUNCHES`` name; the count of all its kernel nodes): what one
-    replay launches, read from the graphs themselves through the driver
-    (``cuGraphGetNodes``, ``cuGraphNodeGetType``,
-    ``cuGraphKernelNodeGetParams``, ``cuFuncGetName``)."""
-    import ctypes
-
-    cu = ctypes.CDLL("libcuda.so.1")
-    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2", cu.cuGraphKernelNodeGetParams)
-    labels, census, total = {}, {}, 0
-    for g in prog.graphs:
-        handle = ctypes.c_void_p(g.raw_cuda_graph())
-        n = ctypes.c_size_t(0)
-        check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
-        nodes = (ctypes.c_void_p * n.value)()
-        check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
-        for node in nodes:
-            kind = ctypes.c_int(-1)
-            rc = cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
-            check(rc == 0, f"cuGraphNodeGetType failed with CUresult {rc}")
-            if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
-                continue
-            total += 1
-            params = (ctypes.c_byte * 128)()  # CUDA_KERNEL_NODE_PARAMS_v2 and room
-            rc = get_params(ctypes.c_void_p(node), params)
-            check(rc == 0, f"cuGraphKernelNodeGetParams failed with CUresult {rc}")
-            func = ctypes.c_void_p.from_buffer(params, 0).value
-            kern = ctypes.c_void_p.from_buffer(params, 56).value  # the v2 struct's CUkernel
-            key = func or kern
-            if key not in labels:
-                name = ctypes.c_char_p()
-                rc = (cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)) if func
-                      else cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(kern)))
-                check(rc == 0, f"the name of a kernel node: CUresult {rc}")
-                labels[key] = kernel_label(name.value.decode())
-            if labels[key] is not None:
-                census[labels[key]] = census.get(labels[key], 0) + 1
-    return census, total
-
-
 def replay_kernels(torch, prog, label):
     """Hold a program's graphs and a traced replay to its counted launches:
     the hand kernels among its kernel nodes must equal the counts; a
@@ -1390,6 +1349,8 @@ def replay_kernels(torch, prog, label):
     an event for every graph node) must show them, or, where every trace
     lost records, no more of any. Returns (replay's busy ms, device events
     traced, hand kernels traced, kernel nodes)."""
+    from repro_torch.analysis.cuda import graph_kernels
+
     counted = nonzero(prog.launches)
     census, kernel_nodes = graph_kernels(prog)
     check(census == counted,
@@ -1543,6 +1504,7 @@ def batch_bootstrap(torch, card, build):
     import numpy as np
 
     from repro_torch import pc_from_corr
+    from repro_torch.analysis.cuda import graph_kernels
     from repro_torch.batch import capture, ensemble, scan_pc
     from repro_torch.core import levels as L, orient
     from repro_torch.data.synthetic_dag import sample_gaussian_dag
@@ -2388,6 +2350,62 @@ def mesh_serving(torch, card, mesh, svc):
                       for f in ("adj", "sepsets", "cpdag")) and g.exact,
                   f"{rid} lane {lane}: the sharded service's graph differs from the unsharded")
     print("  every delivered graph bitwise the unsharded service's")
+    capture.clear()
+
+
+def contracts(torch, card):
+    """Phase 9: the port's contract suite (``repro_torch.analysis``) on the
+    card, layers 1–3, gated on ``analysis_baseline_torch.json``."""
+    from repro_torch.analysis import BASELINE_NAME, compare, load_baseline, run_all
+    from repro_torch.batch import capture
+
+    capture.clear()
+    t_phase = time.monotonic()
+    rep = run_all(str(ROOT), layers=(1, 2, 3), device="cuda")
+    secs = time.monotonic() - t_phase
+    new, stale, accepted = compare(rep.sorted(), load_baseline(ROOT / BASELINE_NAME))
+    for f in rep.sorted():
+        print("  " + f.format())
+    print(f"phase 9 repro_torch.analysis layers 1,2,3: {len(rep.findings)} findings, "
+          f"{len(new)} outside the baseline, {len(stale)} stale entries, {len(accepted)} "
+          "baselined")
+    for line in rep.advisories:
+        print("  " + line)
+    for row in rep.tables["entries"]:
+        print(f"phase 9 entry {row['name']}: hand kernels {row['kernels']} (declared "
+              f"{row['declared']}, reference {row['reference']}) "
+              f"{json.dumps(nonzero(row['launches']))}; sync-debug warnings "
+              f"{row['all_syncs']}: {row['seam_syncs']} in allowlisted seams, {row['syncs']} "
+              f"outside; float64 ops {row['f64_ops']}")
+    for row in rep.tables["contract"]:
+        print(f"phase 9 {row['name']}: chunks {row['chunks']}, dispatches {row['dispatches']}; "
+              f"sync-debug warnings {row['seam_syncs']} in allowlisted seams, {row['syncs']} "
+              "outside")
+    for row in rep.tables["kernels"]:
+        print(f"phase 9 RPR201/202 {row['name']} ({row['kernel']}): poison reached the outputs "
+              f"{row['poison_landed']}, 0xFF and 0x00 runs bitwise {row['poison_equal']}, plain "
+              f"version ({row['compare']}) {row['plain']}, two launches bitwise "
+              f"{row['repeat_equal']}")
+    print(f"phase 9 RPR203 ptxas -v per entry function  [{card}]:")
+    for row in rep.tables["resources"]:
+        print(f"  {row['kernel']:8s} {row['function']:26s} {row['registers']:4d} registers × "
+              f"{row['threads']:3d} threads = {row['block_registers']:6d}, stack {row['stack']} B, "
+              f"spills {row['spill_stores']}/{row['spill_loads']} B, smem {row['static_smem']} B "
+              f"static + {row['dyn_smem']} dynamic (limit {row['smem_limit']} B), "
+              f"{row['launcher']}")
+    print(f"phase 9: {secs:.1f} s  [{card}]")
+    check(not new and not stale, f"phase 9: {len(new)} findings outside the baseline, "
+          f"{len(stale)} stale baseline entries")
+    check(all(r["kernels"] == r["declared"] and r["syncs"] == 0 for r in rep.tables["entries"]),
+          "phase 9: an entry's hand-kernel count or sync warnings break the contract")
+    check(all(r["syncs"] == 0 for r in rep.tables["contract"]),
+          "phase 9: a pc_from_corr run synced outside the allowlisted seams")
+    check(all(r["poison_landed"] and r["poison_equal"] and r["plain"] and r["repeat_equal"]
+              for r in rep.tables["kernels"]), "phase 9: RPR201/RPR202 failed")
+    check(len({r["kernel"] for r in rep.tables["kernels"]}) == 8
+          and {r["kernel"] for r in rep.tables["resources"]} >= {r["kernel"] for r in
+                                                               rep.tables["kernels"]},
+          "phase 9: not every kernel was checked")
     capture.clear()
 
 

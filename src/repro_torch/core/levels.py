@@ -725,8 +725,11 @@ def run_level(c, adj, sep, ell: int, tau: float, engine: str = "S",
     kw = dict(ell=ell, n_chunk=n_chunk, n_max=npr_b)
 
     def t0s():
-        for t0 in range(0, total, n_chunk):
-            yield torch.tensor(t0, dtype=rank_dtype, device=adj.device)
+        # every chunk's first rank made on the device at once: a host scalar
+        # copied a chunk is a blocking copy, which drains the stream a chunk
+        firsts = torch.arange(0, total, n_chunk, dtype=rank_dtype, device=adj.device)
+        for k in range(firsts.shape[0]):
+            yield firsts[k]
 
     chunks = 0
     if pipelined:
