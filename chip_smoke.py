@@ -144,6 +144,19 @@ Phases, each of which exits non-zero on failure:
    allocator (0xFF, 0x00), twice on the same inputs, against its plain
    version, and every entry function's ptxas registers, stack, spills and
    shared memory beside the card's name and power limit. The phase
+   prints its seconds;
+10. LM serving (``repro_torch.launch.serve``, ``repro_torch.models``):
+   (a) ``serve.main(["--arch", "qwen3-1.7b"])`` twice, the full width
+   (28 layers, d_model 2048, vocab 151 936 padded to 152 064; batch 4,
+   prompt 32, 16 generated tokens, bf16 compute, fp32 parameters), its
+   prefill ms, decode tokens/s and peak memory; (b) the same model in
+   fp32 compute: finite logits, and a decode step after a prefill of T
+   within the reference's 2e-2 of the prefill of T + 1; (c) the full
+   width cut to 2 layers, the card against the port's CPU run on the same
+   parameters and prompts (fp32 compute), a prefill and 4 greedy decode
+   steps: logits within 1e-3 · max |logit|, greedy tokens equal; (d) the
+   same for the other four attention-MLP archs, reduced. The path has no
+   hand kernel: the launch counts, reset just before, stay 0. The phase
    prints its seconds.
 
 The last two lines are a ``{"kernels": [...]}`` record and
@@ -909,6 +922,7 @@ def main() -> int:
     svc = serving(torch, card, auto, auto56, boot)
     multi_device(torch, card, svc)
     contracts(torch, card)
+    lm_serving(torch, card)
 
     sources = {"corr": ("src/repro_torch/csrc/corr.cu", "src/repro/kernels/corr.py:38"),
                "level0": ("src/repro_torch/csrc/level0.cu", "src/repro/kernels/level0.py:28"),
@@ -2408,6 +2422,207 @@ def contracts(torch, card):
           "phase 9: not every kernel was checked")
     capture.clear()
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the LM serving path at full width
+LM_ARCH = "qwen3-1.7b"
+LM_SERVE_ARGV = ("--arch", LM_ARCH)  # batch 4, prompt 32, gen 16: bf16 compute
+LM_SHAPE = dict(batch=4, prompt_len=32, gen=16)
+LM_DEPTH = 2  # (c): the full width cut to this many layers
+LM_STEPS = 4
+LM_OTHERS = ("qwen2-1.5b", "stablelm-3b", "starcoder2-15b", "paligemma-3b")
+
+
+def lm_serving(torch, card):
+    """Phase 10: ``repro_torch.launch.serve`` and the model it drives, with
+    the launch counts reset just before and read just after (the path has
+    no hand kernel: every count stays 0)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    t_phase = time.monotonic()
+    build.reset_launches()
+    for run in ("first", "again"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = serve.main(list(LM_SERVE_ARGV))
+        check(rc == 0, f"launch.serve {' '.join(LM_SERVE_ARGV)} exited {rc}")
+        lines = out.getvalue().strip().splitlines()
+        check(len(lines) == 4 and lines[0] == f"[serve] {LM_ARCH}",
+              f"launch.serve printed {lines}")
+        print(f"phase 10 (a) python -m repro_torch.launch.serve {' '.join(LM_SERVE_ARGV)} "
+              f"({run} call, full width, bf16 compute, fp32 parameters): peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+        for line in lines:
+            print("  " + line.strip())
+    lm_decode_profile(torch, card)
+    lm_consistency(torch, card)
+    lm_card_vs_cpu(torch, card, LM_ARCH, LM_DEPTH)
+    for arch in LM_OTHERS:
+        lm_card_vs_cpu(torch, card, arch, None)
+    got = nonzero(dict(build.LAUNCHES))
+    print(f"phase 10: {time.monotonic() - t_phase:.1f} s, hand-kernel launches {json.dumps(got)}"
+          f"  [{card}]")
+    check(not got, f"phase 10: the LM path launched hand kernels {got}")
+    torch.cuda.empty_cache()
+
+
+def lm_decode_profile(torch, card):
+    """(a) continued: (a)'s model and prompts, the steady prefill and decode
+    step on the host clock (to the card's idle), one of each traced by
+    ``torch.profiler`` (the kernels' summed device time, their count, the
+    busiest by name), and the least time a decode step could take: it reads
+    the fp32 parameters once (they are cast to bf16 at each use)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    cfg = ARCHS[LM_ARCH]
+    dev = torch.device("cuda")
+    api = registry.build(cfg, compute_dtype=torch.bfloat16, device=dev)
+    params = api.init()
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    batch = serve.prompts(cfg, LM_SHAPE["batch"], LM_SHAPE["prompt_len"], dev)
+    t_max = LM_SHAPE["prompt_len"] + LM_SHAPE["gen"]
+    logits, cache = api.prefill(params, batch, t_max)
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    calls = {"prefill": lambda: api.prefill(params, batch, t_max),
+             # rewrites the cache's slot `len` each call: the same step again
+             "decode step": lambda: api.decode(params, {"tokens": tok}, cache)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        reps = 10
+        t0 = time.monotonic()
+        for _ in range(reps):
+            fn()
+        step_ms = spent(torch, t0) / reps * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # device-side events only: a CPU op's row repeats its kernels' time
+        busy = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0
+                       and str(e.device_type).endswith("CUDA")),
+                      key=lambda e: -e.self_device_time_total)
+        busy_ms = sum(e.self_device_time_total for e in busy) / 1e3
+        top = "; ".join(f"{e.key[:48]} ×{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                        for e in busy[:4])
+        idle = f"{1 - busy_ms / step_ms:.3f}" if busy else "not measured (no device events)"
+        shape = (f"prompt {LM_SHAPE['prompt_len']}" if name == "prefill"
+                 else f"cache of {t_max}")
+        print(f"phase 10 (a) {LM_ARCH} {name}, bf16 compute, batch {LM_SHAPE['batch']}, "
+              f"{shape}: steady {step_ms:.3f} ms a call, kernels busy {busy_ms:.3f} ms "
+              f"({sum(e.count for e in busy)} device events), idle share {idle}; busiest: "
+              f"{top}  [{card}]")
+    print(f"phase 10 (a) a decode step reads the {n_bytes / 1e9:.3f} GB of fp32 parameters: "
+          f"at least {n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s (bytes)  [{card}]")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def lm_consistency(torch, card):
+    """(b) the full-width model in fp32 compute (TF32 off): finite logits,
+    and one decode step after a prefill of T equal to the prefill of T + 1
+    within the reference's 2e-2 (tests/test_models.py)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    cfg = ARCHS[LM_ARCH]
+    dev = torch.device("cuda")
+    api = registry.build(cfg, compute_dtype=torch.float32, device=dev)
+    params = api.init()
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    batch = serve.prompts(cfg, LM_SHAPE["batch"], LM_SHAPE["prompt_len"], dev)
+    t_max = LM_SHAPE["prompt_len"] + LM_SHAPE["gen"]
+    t0 = time.monotonic()
+    logits, cache = api.prefill(params, batch, t_max)
+    prefill_s = spent(torch, t0)
+    nxt = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    t0 = time.monotonic()
+    dec, _ = api.decode(params, {"tokens": nxt}, cache)
+    decode_s = spent(torch, t0)
+    full, _ = api.prefill(params, {"tokens": torch.cat([batch["tokens"], nxt], 1)}, t_max)
+    err = float((full[:, -1] - dec[:, -1]).abs().max())
+    top = float(full.abs().max())
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(dec).all())
+    print(f"phase 10 (b) {LM_ARCH} full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab} padded {cfg.padded_vocab}), fp32 compute, TF32 off: "
+          f"{n_bytes / 1e9:.3f} GB of parameters; prefill {prefill_s * 1e3:.1f} ms, one decode "
+          f"step {decode_s * 1e3:.1f} ms (first calls; reading the parameters once takes "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s); prefill/decode max |Δ| "
+          f"{err:.3e} (max |logit| {top:.3f}), finite {finite}  [{card}]")
+    check(finite and logits.device.type == "cuda", "phase 10 (b): non-finite logits, or not "
+          "on the card")
+    check(err <= 2e-2, f"phase 10 (b): prefill/decode differ by {err}")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def lm_card_vs_cpu(torch, card, arch, depth):
+    """(c), (d): the same parameters and prompts on the card and on the CPU,
+    fp32 compute (TF32 off): a prefill and LM_STEPS greedy decode steps,
+    each side fed its own tokens, greedy tokens equal. With an fp32 cache
+    (``lm_prefill``'s ``cache_dtype``) the arithmetic is fp32 throughout:
+    logits within 1e-3 · max |logit|. With the serving default, a bf16
+    cache, decode rounds k/v and the attention weights to bf16, and the two
+    devices' fp32 sums may round to neighbouring bf16 values: logits within
+    the reference's own bound for what that cache does, 2e-2
+    (tests/test_models.py). ``depth`` cuts the full width's layers; None
+    runs ``reduced()``."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models import registry, transformer as TT
+
+    cfg = ARCHS[arch]
+    cfg = cfg.reduced() if depth is None else dataclasses.replace(cfg, n_layers=depth)
+    label = (f"(c) {arch} full width cut to {depth} layers" if depth is not None
+             else f"(d) {arch} reduced")
+    t_max = LM_SHAPE["prompt_len"] + LM_SHAPE["gen"] + (cfg.vis_ctx or 0)
+    cpu_params = registry.build(cfg, device="cpu").init()
+    card_params = copy.deepcopy(cpu_params).to(torch.device("cuda"))
+    batch = serve.prompts(cfg, LM_SHAPE["batch"], LM_SHAPE["prompt_len"], "cpu")
+    for cache_dtype, bound in ((torch.float32, None), (torch.bfloat16, 2e-2)):
+        runs = []
+        for params in (card_params, cpu_params):
+            dev = params["embed"].device
+            api = registry.build(cfg, compute_dtype=torch.float32, device=dev)
+            t0 = time.monotonic()
+            logits, cache = TT.lm_prefill(params, cfg, {k: v.to(dev) for k, v in batch.items()},
+                                          t_max, torch.float32, cache_dtype)
+            steps, toks = [logits.cpu()], []
+            for _ in range(LM_STEPS):
+                tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+                toks.append(tok.cpu())
+                logits, cache = api.decode(params, {"tokens": tok}, cache)
+                steps.append(logits.cpu())
+            secs = spent(torch, t0) if dev.type == "cuda" else time.monotonic() - t0
+            runs.append((steps, torch.cat(toks, 1), logits.device.type, secs))
+        (c_steps, c_tok, c_dev, c_s), (p_steps, p_tok, _, p_s) = runs
+        top = max(float(x.abs().max()) for x in p_steps)
+        errs = [float((a - b).abs().max()) for a, b in zip(c_steps, p_steps)]
+        same = torch.equal(c_tok, p_tok)
+        name = str(cache_dtype).removeprefix("torch.")
+        limit = 1e-3 * top if bound is None else bound
+        print(f"phase 10 {label}, {name} cache: prefill + {LM_STEPS} decode steps, card "
+              f"{c_s:.3f} s, CPU {p_s:.3f} s; logits max |Δ| by step "
+              f"{', '.join(f'{e:.3e}' for e in errs)} (limit {limit:.3e}, max |logit| "
+              f"{top:.3f}); greedy tokens equal {same} {c_tok[0].tolist()}  [{card}]")
+        check(c_dev == "cuda", f"phase 10 {label}: the card run fell back to {c_dev}")
+        check(max(errs) <= limit and same, f"phase 10 {label}, {name} cache: the card and the "
+              "CPU differ")
+    del card_params
+    torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     try:

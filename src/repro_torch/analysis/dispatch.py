@@ -550,7 +550,28 @@ def entry_points() -> list[Entry]:
 
         return run, (c, (0.5, 0.4, 0.3)), {}
 
+    def lm(step):
+        def build(dev):
+            from repro_torch.configs import ARCHS
+            from repro_torch.models import registry
+
+            cfg = ARCHS["qwen3-1.7b"].reduced()
+            api = registry.build(cfg, compute_dtype=torch.float32, device=dev)
+            params = api.init()
+            gen = torch.Generator(dev).manual_seed(1)
+            tokens = torch.randint(0, cfg.vocab, (2, 8), generator=gen, device=dev,
+                                   dtype=torch.int32)
+            if step == "prefill":
+                return api.prefill, (params, {"tokens": tokens}, 16), {}
+            _, cache = api.prefill(params, {"tokens": tokens}, 16)
+            return api.decode, (params, {"tokens": tokens[:, :1]}, cache), {}
+        return build
+
     ops_p, lv = f"{K}/ops.py", f"{C}/levels.py"
+    lm_p, lm_root = f"{R.PACKAGE_DIR}/models/transformer.py", "models/transformer.py::{}".format
+    lm_why = ("the LM serving path (reduced qwen3-1.7b, fp32) holds no hand kernel, and the "
+              "reference's traced prefill and decode hold no pallas_call (0); the reference's "
+              "jaxpr table has no LM row")
     chunk_root = "core/levels.py::{}".format
     ops_root = "kernels/ops.py::{}".format
     return [
@@ -601,6 +622,9 @@ def entry_points() -> list[Entry]:
               "on the card the recorded program replays the fused level-0 span (1) and one "
               "skernel launch a sweep step (1 step at each of ℓ = 1, 2); on the CPU the scan "
               "runs levels.chunk_s, as the reference's scan traces no pallas_call"),
+        Entry("lm_prefill", lm("prefill"), 0, 0, None, lm_p, lm_root("lm_prefill"), (), lm_why),
+        Entry("lm_decode", lm("decode"), 0, 0, None, lm_p, lm_root("lm_decode_step"), (),
+              lm_why),
     ]
 
 

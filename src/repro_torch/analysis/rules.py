@@ -101,6 +101,17 @@ HOT: frozenset[str] = frozenset(
         "_sweep_plan", "_level_ok", "_use_dense_l1", "_plan_chunk", "_dense_l1",
         "_level1_dense")]
     + ["batch/capture.py::boundary"]
+    # the LM serving path: a prefill and a decode step are the per-step path
+    + [f"models/transformer.py::{f}" for f in (
+        "lm_prefill", "lm_forward", "lm_decode_step", "lm_cache_init", "_embed_inputs",
+        "block_apply", "block_decode", "_ffn_part", "_norm", "_logits")]
+    + [f"models/attention.py::{f}" for f in (
+        "_qkv", "_promote", "_sdpa", "gqa_forward", "gqa_decode", "gqa_cache_init")]
+    + [f"models/flash.py::{f}" for f in (
+        "_block_bias", "_pad_tk", "_mm_dtype", "_mm_operand", "flash_attention")]
+    + [f"models/layers.py::{f}" for f in (
+        "rmsnorm", "layernorm", "_gelu_tanh", "act_fn", "mlp", "rope_freqs", "apply_rope",
+        "unembed")]
 )
 
 #: Names a ``capture.run`` key may be built from: each is one recording

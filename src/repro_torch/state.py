@@ -8,6 +8,9 @@ turns them into port tensors with the reference's dtypes (f32, f32, bool,
 int32; int32 codes and arities), and :func:`run_to_numpy` goes the other
 way. Together they let a caller start a port level from the reference's
 (adj, sep) after level ℓ − 1.
+
+The LM side has weights: :func:`lm_params_from_numpy` carries the JAX
+``lm_init`` pytree, as numpy arrays, into the port's ``models.LM``.
 """
 from __future__ import annotations
 
@@ -72,3 +75,45 @@ def run_to_numpy(state: RunState) -> dict:
         out["codes"] = state.stats.codes.cpu().numpy()
         out["arities"] = state.stats.arities.cpu().numpy()
     return out
+
+
+def _lm_tensor(arr, dev) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if not np.issubdtype(arr.dtype, np.floating):
+        raise ValueError(f"LM parameters must be floating point, got {arr.dtype}")
+    return torch.tensor(arr, device=dev)
+
+
+def _tree_map(fn, tree):
+    return ({k: _tree_map(fn, v) for k, v in tree.items()} if isinstance(tree, dict)
+            else fn(tree))
+
+
+def lm_params_from_numpy(cfg, tree: dict, device=None):
+    """The reference's ``lm_init`` pytree as numpy arrays (``embed``,
+    ``segments`` each stacked (L, ...), ``final_norm``, and ``unembed`` and
+    ``vis_proj`` where present) → the port's ``models.transformer.LM`` on
+    ``device`` (None: the CUDA card), one ``Block`` a layer. The layouts are
+    the reference's, so each array is copied, and a segment's only
+    unstacked; the dtypes are kept."""
+    from .models.transformer import LM, program
+
+    dev = resolve_device(device)
+    segs = program(cfg)
+    if len(tree["segments"]) != len(segs):
+        raise ValueError(f"{cfg.name}: {len(tree['segments'])} segments given, the program "
+                         f"has {len(segs)}")
+    layers = []
+    for spec, stacked in zip(segs, tree["segments"]):
+        flat = _tree_map(lambda a: _lm_tensor(a, dev), stacked)
+        if any(t.shape[0] != spec.count for t in _leaves(flat)):
+            raise ValueError(f"{cfg.name}: a {spec.kind} segment stacks {spec.count} layers")
+        layers.append([_tree_map(lambda t, i=i: t[i].clone(), flat)
+                       for i in range(spec.count)])
+    rest = {k: _tree_map(lambda a: _lm_tensor(a, dev), v) for k, v in tree.items()
+            if k != "segments"}
+    return LM(cfg, {**rest, "segments": layers})
+
+
+def _leaves(tree):
+    return [x for v in tree.values() for x in _leaves(v)] if isinstance(tree, dict) else [tree]
