@@ -550,12 +550,12 @@ def entry_points() -> list[Entry]:
 
         return run, (c, (0.5, 0.4, 0.3)), {}
 
-    def lm(step):
+    def lm(step, arch="qwen3-1.7b"):
         def build(dev):
             from repro_torch.configs import ARCHS
             from repro_torch.models import registry
 
-            cfg = ARCHS["qwen3-1.7b"].reduced()
+            cfg = ARCHS[arch].reduced()
             api = registry.build(cfg, compute_dtype=torch.float32, device=dev)
             params = api.init()
             gen = torch.Generator(dev).manual_seed(1)
@@ -569,9 +569,12 @@ def entry_points() -> list[Entry]:
 
     ops_p, lv = f"{K}/ops.py", f"{C}/levels.py"
     lm_p, lm_root = f"{R.PACKAGE_DIR}/models/transformer.py", "models/transformer.py::{}".format
-    lm_why = ("the LM serving path (reduced qwen3-1.7b, fp32) holds no hand kernel, and the "
+    lm_why = ("the LM serving path (reduced {}, fp32) holds no hand kernel, and the "
               "reference's traced prefill and decode hold no pallas_call (0); the reference's "
-              "jaxpr table has no LM row")
+              "jaxpr table has no LM row").format
+    #: one prefill and one decode row a segment-kind family beyond attn_mlp
+    families = {"moe": "qwen2-moe-a2.7b", "mla": "deepseek-v2-236b", "rwkv6": "rwkv6-3b",
+                "zamba2": "zamba2-1.2b"}
     chunk_root = "core/levels.py::{}".format
     ops_root = "kernels/ops.py::{}".format
     return [
@@ -622,10 +625,14 @@ def entry_points() -> list[Entry]:
               "on the card the recorded program replays the fused level-0 span (1) and one "
               "skernel launch a sweep step (1 step at each of ℓ = 1, 2); on the CPU the scan "
               "runs levels.chunk_s, as the reference's scan traces no pallas_call"),
-        Entry("lm_prefill", lm("prefill"), 0, 0, None, lm_p, lm_root("lm_prefill"), (), lm_why),
+        Entry("lm_prefill", lm("prefill"), 0, 0, None, lm_p, lm_root("lm_prefill"), (),
+              lm_why("qwen3-1.7b")),
         Entry("lm_decode", lm("decode"), 0, 0, None, lm_p, lm_root("lm_decode_step"), (),
-              lm_why),
-    ]
+              lm_why("qwen3-1.7b")),
+    ] + [Entry(f"lm_{step}_{fam}", lm(step, arch), 0, 0, None, lm_p, lm_root(root), (),
+               lm_why(arch))
+         for fam, arch in families.items()
+         for step, root in (("prefill", "lm_prefill"), ("decode", "lm_decode_step"))]
 
 
 def run_entry(e: Entry, device: torch.device, allowlist=None, hot=None) -> tuple[list, dict]:

@@ -103,10 +103,19 @@ HOT: frozenset[str] = frozenset(
     + ["batch/capture.py::boundary"]
     # the LM serving path: a prefill and a decode step are the per-step path
     + [f"models/transformer.py::{f}" for f in (
-        "lm_prefill", "lm_forward", "lm_decode_step", "lm_cache_init", "_embed_inputs",
-        "block_apply", "block_decode", "_ffn_part", "_norm", "_logits")]
+        "lm_prefill", "lm_forward", "lm_decode_step", "lm_cache_init", "_layer_cache_init",
+        "_embed_inputs", "block_apply", "block_decode", "_ffn_part", "_site_in", "_site_out",
+        "_site_apply", "_norm", "_logits")]
     + [f"models/attention.py::{f}" for f in (
-        "_qkv", "_promote", "_sdpa", "gqa_forward", "gqa_decode", "gqa_cache_init")]
+        "_qkv", "_promote", "_sdpa", "gqa_forward", "gqa_decode", "gqa_cache_init", "_mla_q",
+        "_mla_ckv", "mla_forward", "mla_decode", "mla_cache_init")]
+    + [f"models/moe.py::{f}" for f in ("capacity", "route", "slots", "_combine", "moe_apply")]
+    + [f"models/ssm.py::{f}" for f in (
+        "_dims", "_conv1d_causal", "_split_proj", "_post", "_segsum", "_chunk_step",
+        "mamba2_forward", "mamba2_state_init", "mamba2_decode")]
+    + [f"models/rwkv6.py::{f}" for f in (
+        "_dims", "_ddlerp", "_rkvwg", "_groupnorm_heads", "_shift", "_out", "_chunk_step",
+        "rwkv6_mix_chunked", "rwkv6_mix_recurrent", "rwkv6_state_init", "rwkv6_cmix")]
     + [f"models/flash.py::{f}" for f in (
         "_block_bias", "_pad_tk", "_mm_dtype", "_mm_operand", "flash_attention")]
     + [f"models/layers.py::{f}" for f in (

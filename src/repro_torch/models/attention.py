@@ -1,12 +1,14 @@
-"""GQA/MQA attention (RoPE, qk-norm, bias) in a full-sequence form and a
-one-token decode form against a KV cache, and the two dense masks (the
-counterpart of ``src/repro/models/attention.py:21-106, 239-248``; MLA and
-cross-attention arrive with their families, ROADMAP 14a-ii and 14a-iv).
+"""Attention mixers: GQA/MQA (RoPE, qk-norm, bias) and MLA (DeepSeek-V2),
+each in a full-sequence form and a one-token decode form against a cache,
+and the two dense masks (the counterpart of
+``src/repro/models/attention.py:21-207, 239-248``; cross-attention arrives
+with the audio family, ROADMAP 14a-iv).
 
-KV cache layout: {k, v: (B, T_max, KV, dh), len: () int32 on the device}.
-``gqa_decode`` writes position ``len`` in place and masks keys by
-``arange(T_max) <= len``: a decode step reads no value back to the host
-and keeps every shape fixed.
+GQA cache: {k, v: (B, T_max, KV, dh), len: () int32 on the device}. MLA
+cache, compressed (the point of MLA): {ckv: (B, T_max, kv_lora), kpe:
+(B, T_max, d_rope), len}. Decode writes position ``len`` in place and
+masks keys by ``arange(T_max) <= len``: a decode step reads no value back
+to the host and keeps every shape fixed.
 """
 from __future__ import annotations
 
@@ -117,6 +119,103 @@ def gqa_cache_init(cfg, batch: int, t_max: int, dtype, device=None) -> dict:
     return {
         "k": torch.zeros((batch, t_max, kv, dh), dtype=dtype, device=device),
         "v": torch.zeros((batch, t_max, kv, dh), dtype=dtype, device=device),
+        "len": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+# ======================================================================= MLA
+def mla_init(generator: torch.Generator, cfg, dtype) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    dev = generator.device
+    return {
+        "wq_a": dense_init(generator, (d, m.q_lora), dtype),
+        "q_a_norm": rmsnorm_init(m.q_lora, dtype, device=dev),
+        "wq_b": dense_init(generator, (m.q_lora, h, m.d_nope + m.d_rope), dtype),
+        "wkv_a": dense_init(generator, (d, m.kv_lora + m.d_rope), dtype),
+        "kv_a_norm": rmsnorm_init(m.kv_lora, dtype, device=dev),
+        "wk_b": dense_init(generator, (m.kv_lora, h, m.d_nope), dtype),
+        "wv_b": dense_init(generator, (m.kv_lora, h, m.d_v), dtype),
+        "wo": dense_init(generator, (h, m.d_v, d), dtype, scale=(h * m.d_v) ** -0.5),
+    }
+
+
+def _mla_q(p, cfg, x: torch.Tensor, positions: torch.Tensor):
+    m = cfg.mla
+    dt = x.dtype
+    qa = rmsnorm(p["q_a_norm"], x @ p["wq_a"].to(dt), cfg.norm_eps)
+    q = torch.einsum("btl,lhk->bthk", qa, p["wq_b"].to(dt))
+    q_nope, q_pe = q[..., :m.d_nope], q[..., m.d_nope:]
+    return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
+
+
+def _mla_ckv(p, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """The compressed cache entries: (ckv (B, T, kv_lora), kpe (B, T, d_rope))."""
+    m = cfg.mla
+    kv = x @ p["wkv_a"].to(x.dtype)
+    ckv = rmsnorm(p["kv_a_norm"], kv[..., :m.kv_lora], cfg.norm_eps)
+    kpe = apply_rope(kv[..., None, m.kv_lora:], positions, cfg.rope_theta)[..., 0, :]
+    return ckv, kpe
+
+
+def mla_forward(p, cfg, x: torch.Tensor, positions: torch.Tensor, mask):
+    """Prefill: k/v expanded per head; the two-term score q_nope·k_nope +
+    q_pe·k_pe folded into one blocked attention by concatenating the rotary
+    part onto the head dim (k_pe broadcast across heads): dk = d_nope +
+    d_rope, dv = d_v. Returns (out, (ckv, kpe)), the compressed cache."""
+    from .flash import flash_attention
+
+    m = cfg.mla
+    dt = x.dtype
+    q_nope, q_pe = _mla_q(p, cfg, x, positions)
+    ckv, kpe = _mla_ckv(p, cfg, x, positions)
+    k_nope = torch.einsum("bsl,lhk->bshk", ckv, p["wk_b"].to(dt))
+    v = torch.einsum("bsl,lhk->bshk", ckv, p["wv_b"].to(dt))
+    b, t, h, _ = q_nope.shape
+    s = ckv.shape[1]
+    qcat = torch.cat([q_nope, q_pe], -1)[:, :, :, None, :]  # KV = H, G = 1
+    kcat = torch.cat([k_nope, kpe[:, :, None, :].expand(b, s, h, m.d_rope)], -1)
+    kind, prefix = mask if mask is not None else ("none", 0)
+    o = flash_attention(qcat, kcat, v, (m.d_nope + m.d_rope) ** -0.5, kind, prefix)[:, :, :, 0]
+    return torch.einsum("bthk,hkd->btd", o, p["wo"].to(dt)), (ckv, kpe)
+
+
+def mla_decode(p, cfg, x: torch.Tensor, cache: dict):
+    """Absorbed decode: W_uk folds into the query and W_uv into the
+    context, so scores and context live in the kv_lora-wide compressed
+    space and the cache stays compressed. Writes this token's ckv/kpe at
+    ``len`` in place. The softmax weights are cast to the compute dtype
+    (``attention.py:193``; GQA casts them to the cache's)."""
+    m = cfg.mla
+    dt = x.dtype
+    length = cache["len"]
+    pos = length.reshape(1, 1).expand(x.shape[0], 1)
+    q_nope, q_pe = _mla_q(p, cfg, x, pos)  # (B, 1, H, ·)
+    ckv1, kpe1 = _mla_ckv(p, cfg, x, pos)
+    ckv, kpe = cache["ckv"], cache["kpe"]
+    t_max = ckv.shape[1]
+    at = length.reshape(1).clamp(max=t_max - 1).long()
+    ckv.index_copy_(1, at, ckv1.to(ckv.dtype))
+    kpe.index_copy_(1, at, kpe1.to(kpe.dtype))
+    q_eff = torch.einsum("bthk,lhk->bthl", q_nope, p["wk_b"].to(dt))
+    logits = (torch.einsum("bthl,bsl->bhts", *_promote(q_eff, ckv))
+              + torch.einsum("bthk,bsk->bhts", *_promote(q_pe, kpe))).float()
+    logits = logits * (m.d_nope + m.d_rope) ** -0.5
+    mask = torch.arange(t_max, device=x.device)[None, None, None, :] <= length
+    w = torch.softmax(torch.where(mask, logits, NEG), dim=-1).to(dt)
+    ctx = torch.einsum("bhts,bsl->bthl", *_promote(w, ckv))  # compressed context
+    o = torch.einsum("bthl,lhk->bthk", *_promote(ctx, p["wv_b"].to(dt)))
+    out = torch.einsum("bthk,hkd->btd", *_promote(o, p["wo"].to(dt)))
+    return out, {"ckv": ckv, "kpe": kpe, "len": length + 1}
+
+
+def mla_cache_init(cfg, batch: int, t_max: int, dtype, device=None) -> dict:
+    """An empty compressed cache on ``device`` (None: the CUDA card)."""
+    device = resolve_device(device)
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, t_max, m.kv_lora), dtype=dtype, device=device),
+        "kpe": torch.zeros((batch, t_max, m.d_rope), dtype=dtype, device=device),
         "len": torch.zeros((), dtype=torch.int32, device=device),
     }
 

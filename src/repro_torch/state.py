@@ -85,17 +85,20 @@ def _lm_tensor(arr, dev) -> torch.Tensor:
 
 
 def _tree_map(fn, tree):
+    if tree is None:
+        return None
     return ({k: _tree_map(fn, v) for k, v in tree.items()} if isinstance(tree, dict)
             else fn(tree))
 
 
 def lm_params_from_numpy(cfg, tree: dict, device=None):
     """The reference's ``lm_init`` pytree as numpy arrays (``embed``,
-    ``segments`` each stacked (L, ...), ``final_norm``, and ``unembed`` and
-    ``vis_proj`` where present) → the port's ``models.transformer.LM`` on
-    ``device`` (None: the CUDA card), one ``Block`` a layer. The layouts are
-    the reference's, so each array is copied, and a segment's only
-    unstacked; the dtypes are kept."""
+    ``segments`` each stacked (L, ...) and None for a zamba2 ``site``,
+    ``final_norm``, and ``unembed``, ``vis_proj`` and ``site`` (``shared``
+    and ``lora``, or ``lora`` None) where present) → the port's
+    ``models.transformer.LM`` on ``device`` (None: the CUDA card), one
+    ``Block`` a layer. The layouts are the reference's, so each array is
+    copied, and a segment's only unstacked; the dtypes are kept."""
     from .models.transformer import LM, program
 
     dev = resolve_device(device)
@@ -105,6 +108,12 @@ def lm_params_from_numpy(cfg, tree: dict, device=None):
                          f"has {len(segs)}")
     layers = []
     for spec, stacked in zip(segs, tree["segments"]):
+        if spec.kind == "site":
+            if stacked is not None:
+                raise ValueError(f"{cfg.name}: a site segment holds no parameters (the "
+                                 "shared block is the tree's 'site')")
+            layers.append([])
+            continue
         flat = _tree_map(lambda a: _lm_tensor(a, dev), stacked)
         if any(t.shape[0] != spec.count for t in _leaves(flat)):
             raise ValueError(f"{cfg.name}: a {spec.kind} segment stacks {spec.count} layers")
@@ -116,4 +125,6 @@ def lm_params_from_numpy(cfg, tree: dict, device=None):
 
 
 def _leaves(tree):
+    if tree is None:
+        return []
     return [x for v in tree.values() for x in _leaves(v)] if isinstance(tree, dict) else [tree]

@@ -11,7 +11,10 @@
   plus dv ≠ dk, under both values of ``FLASH_BF16``;
 * ``gqa_forward`` and ``gqa_decode`` with qkv bias, qk-norm, MQA (kv = 1)
   and MHA;
-* ``build`` of a family not yet ported raises ``NotImplementedError``.
+* ``build`` of the one family not yet ported, the audio family (Whisper),
+  raises ``NotImplementedError`` naming ROADMAP item 14a-iv; the other
+  segment kinds are held to the reference in test_torch_lm_families.py
+  and test_torch_lm_serve.py.
 
 Inputs are seeded numpy arrays; parameters are random numpy trees (biases
 and norm scales included, so that no term is a no-op). fp32 tolerances
@@ -44,8 +47,7 @@ from repro_torch.models import registry as TR  # noqa: E402
 pytestmark = pytest.mark.torch
 
 ALL_ARCHS = sorted(J.ARCHS)
-ATTN_MLP = ("qwen3-1.7b", "qwen2-1.5b", "stablelm-3b", "starcoder2-15b", "paligemma-3b")
-UNPORTED = sorted(set(ALL_ARCHS) - set(ATTN_MLP))
+UNPORTED = sorted(a for a in ALL_ARCHS if J.ARCHS[a].family == "audio")
 F32_ATOL = 2e-6
 
 
@@ -76,9 +78,26 @@ def test_shapes_and_train_config_equal_the_reference():
     assert T.ARCHS["qwen3-1.7b"].padded_vocab == 152064
 
 
+@pytest.mark.parametrize("arch", sorted(set(ALL_ARCHS) - set(UNPORTED)))
+def test_every_decoder_builds_with_the_reference_cache(arch):
+    """``build`` accepts every decoder family, and its empty cache has the
+    reference's tensors, shapes and dtypes, segment by segment."""
+    api = TR.build(T.ARCHS[arch].reduced(), device="cpu")
+    got = api.cache_init(2, 24)
+    want = JR.abstract_cache(J.ARCHS[arch].reduced(), 2, 24)
+    flat = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert len(flat) == sum(len(seg) for seg in got["segments"]) + 1
+    for path, leaf in flat:
+        val = got
+        for k in path:
+            val = val[getattr(k, "key", getattr(k, "idx", None))]
+        assert tuple(val.shape) == leaf.shape and str(val.dtype) == f"torch.{leaf.dtype}", path
+        assert not bool(val.any())
+
+
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_family_raises(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14a-i"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14a-iv"):
         TR.build(T.ARCHS[arch].reduced(), device="cpu")
 
 
