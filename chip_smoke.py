@@ -179,7 +179,43 @@ Phases, each of which exits non-zero on failure:
    ``rwkv6_mix_recurrent`` at full width, T padded to whole chunks, within
    1e-4 · max(1, max |value|); (j) a full-width MoE layer twice, bitwise
    equal. The path has no hand kernel: the launch
-   counts, reset just before, stay 0. The phase prints its seconds.
+   counts, reset just before, stay 0. The phase prints its seconds;
+11. Whisper and single-card training (``repro_torch.models.whisper``,
+   ``registry.make_train_step``, ``optim``, ``checkpoint``,
+   ``distributed.supervisor``, ``launch.train``): (a) whisper-large-v3
+   uncut (32 + 32 layers, d_model 1280, 20 heads, enc_ctx 1500, vocab
+   51 866 padded to 51 968; seed-0 weights, frames (4, 1500, 1280) · 0.1)
+   served through ``registry.build`` (batch 4, 32-token prompts, 16 greedy
+   tokens, bf16 compute, fp32 parameters, a bf16 cache) twice: prefill ms,
+   the encoder alone, tokens/s, peak memory, a steady decode step traced;
+   (b) the same in fp32 compute, a decode step after a prefill of T
+   against the prefill of T + 1 through an fp32 and a bf16 cache, held by
+   phase 10's rule; (c) the full width cut to 2 + 2 layers, the card
+   against the port's CPU run: a prefill and 4 decode steps, logits within
+   1e-3 · max |logit| (fp32 cache), tokens equal; (d) qwen3-1.7b uncut,
+   ``TrainConfig`` defaults (bf16 compute, fp32 parameters, remat, clip
+   1.0, weight decay 0.1) with ``launch.train``'s schedule for 8 steps
+   (lr 1e-3, warmup 5), 8 steps of ``make_train_step`` on
+   ``TokenPipeline`` batches of 8 × 128: every loss and gradient norm
+   finite, the last loss below the first and step 0's batch again below
+   its step-0 loss, the median steady step,
+   tokens/s, peak memory and one step traced; (e) one train step, fp32,
+   card against CPU on qwen3-1.7b at full width cut to 2 layers and
+   whisper at full width cut to 2 + 2 layers with enc_ctx cut to 256,
+   batch 2 × 64: the loss, every gradient leaf and every parameter after
+   the AdamW step to tolerances stated before the run (``TRAIN_TOL``), and
+   the card's step again from the same state bitwise equal; (f)
+   ``python -m repro_torch.launch.train --arch qwen3-1.7b --reduced
+   --steps 12 --ckpt-every 4 --inject-failure 6`` in a subprocess: 1
+   restart and a loss history bitwise the uninterrupted run's, and one
+   bf16 train step twice from one state bitwise equal on reduced qwen3,
+   qwen2-moe and whisper; (g) the flash backward at whisper's encoder
+   shape (T = 1500, "none") and qwen3's training shape (T = 128, causal,
+   GQA) against autograd through ``sdpa_ref`` in fp32. No hand kernel:
+   the launch counts stay 0. The phase prints its seconds.
+
+``python3 chip_smoke.py --phase 11`` runs phase 11 alone (no build, no
+``kernels`` line, no ``ok`` record).
 
 The last two lines are a ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -188,6 +224,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -925,6 +962,10 @@ def main() -> int:
                          capture_output=True, text=True, check=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    if sys.argv[1:] == ["--phase", "11"]:
+        lm_training(torch, smi.stdout.strip())
+        print(smi.stdout.strip())
+        return 0
 
     # ---------------------------------------------------------------- build
     t0 = time.monotonic()
@@ -945,6 +986,7 @@ def main() -> int:
     multi_device(torch, card, svc)
     contracts(torch, card)
     lm_serving(torch, card)
+    lm_training(torch, card)
 
     sources = {"corr": ("src/repro_torch/csrc/corr.cu", "src/repro/kernels/corr.py:38"),
                "level0": ("src/repro_torch/csrc/level0.cu", "src/repro/kernels/level0.py:28"),
@@ -2586,6 +2628,36 @@ class MoERecorder:
         TT.moe_apply = self.real
 
 
+def traced(torch, fn, reps=10, warm=True):
+    """``fn`` steady on the host clock (a warm call, then ``reps`` calls, to
+    the card's idle) and one call traced by ``torch.profiler``: the
+    kernels' summed device time, their count, the busiest by name and the
+    idle share of the steady call. Returns the numbers and their line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(reps):
+        fn()
+    step_ms = spent(torch, t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # device-side events only: a CPU op's row repeats its kernels' time
+    busy = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0
+                   and str(e.device_type).endswith("CUDA")),
+                  key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in busy) / 1e3
+    top = "; ".join(f"{e.key[:48]} ×{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                    for e in busy[:4])
+    idle = f"{1 - busy_ms / step_ms:.3f}" if busy else "not measured (no device events)"
+    text = (f"steady {step_ms:.3f} ms a call, kernels busy {busy_ms:.3f} ms "
+            f"({sum(e.count for e in busy)} device events), idle share {idle}; busiest: {top}")
+    return dict(ms=step_ms, busy_ms=busy_ms, text=text)
+
+
 def lm_decode_profile(torch, card, tag, arch):
     """``arch`` at full width as ``launch.serve`` runs it (its prompts): the
     steady prefill and decode step on the host clock (to the card's idle),
@@ -2594,8 +2666,6 @@ def lm_decode_profile(torch, card, tag, arch):
     step could take: it reads the fp32 parameters once (each is cast to
     bf16 at its use; the MoE layers cast every expert). An MoE model's
     prefill is run once more with its capacity drops counted."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import ARCHS
     from repro_torch.launch import serve
     from repro_torch.models import moe, registry
@@ -2614,30 +2684,10 @@ def lm_decode_profile(torch, card, tag, arch):
              # rewrites the cache's slot `len` each call: the same step again
              "decode step": lambda: api.decode(params, {"tokens": tok}, cache)}
     for name, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        reps = 10
-        t0 = time.monotonic()
-        for _ in range(reps):
-            fn()
-        step_ms = spent(torch, t0) / reps * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        # device-side events only: a CPU op's row repeats its kernels' time
-        busy = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0
-                       and str(e.device_type).endswith("CUDA")),
-                      key=lambda e: -e.self_device_time_total)
-        busy_ms = sum(e.self_device_time_total for e in busy) / 1e3
-        top = "; ".join(f"{e.key[:48]} ×{e.count} {e.self_device_time_total / 1e3:.3f} ms"
-                        for e in busy[:4])
-        idle = f"{1 - busy_ms / step_ms:.3f}" if busy else "not measured (no device events)"
         shape = (f"prompt {LM_SHAPE['prompt_len']}" if name == "prefill"
                  else f"cache of {t_max}")
         print(f"phase 10 {tag} {arch} {name}, bf16 compute, batch {LM_SHAPE['batch']}, "
-              f"{shape}: steady {step_ms:.3f} ms a call, kernels busy {busy_ms:.3f} ms "
-              f"({sum(e.count for e in busy)} device events), idle share {idle}; busiest: "
-              f"{top}  [{card}]")
+              f"{shape}: {traced(torch, fn)['text']}  [{card}]")
     print(f"phase 10 {tag} {arch}: a decode step reads the {n_bytes / 1e9:.3f} GB of fp32 "
           f"parameters: at least {n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s (bytes)"
           f"  [{card}]")
@@ -2925,6 +2975,459 @@ def moe_repeatable(torch, card):
           f"bitwise equal {same}  [{card}]")
     check(same, "phase 10 (j): the MoE combine is not repeatable")
     del p
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 11: Whisper served, and single-card training
+WHISPER = "whisper-large-v3"  # 32 + 32 layers, d_model 1280, 20 heads, enc_ctx 1500
+W_DEPTH = 2  # (c), (e): the full width cut to this many encoder and decoder layers
+W_ENC_CTX = 256  # (e): the training comparison's encoder context, cut from 1500
+TRAIN_SHAPE = dict(batch=8, seq=128, steps=8)  # (d)
+TRAIN_CUT = dict(batch=2, seq=64)  # (e)
+# (e): tolerances, stated before the run. fp32 on both devices (TF32 off),
+# sums in other orders: the loss to 1e-5 · |loss|; a gradient leaf to 1e-4 ·
+# max |leaf| + 1e-6 · max |grad| over the tree; a parameter after the AdamW
+# step to 1e-6 · max(1, max |p|) of its leaf plus lr · min(2, 2 δ_g / (|g| +
+# eps)) with δ_g the element's gradient tolerance (Adam's first step is lr ·
+# g / (|g| + eps), which δ_g moves by at most that)
+TRAIN_TOL = dict(loss=1e-5, grad=1e-4, grad_floor=1e-6, param=1e-6)
+FLASH_TOL = 1e-4  # (g): fp32 flash backward against autograd through sdpa_ref, × max(1, max |y|)
+
+
+def lm_training(torch, card):
+    """Phase 11: Whisper's serving path and the single-card training path,
+    with the launch counts reset just before and read just after (neither
+    has a hand kernel: every count stays 0)."""
+    from repro_torch.kernels import build
+
+    t_phase = time.monotonic()
+    build.reset_launches()
+    whisper_serving(torch, card)
+    whisper_consistency(torch, card)
+    whisper_card_vs_cpu(torch, card)
+    train_full_width(torch, card)
+    train_card_vs_cpu(torch, card)
+    train_launcher(torch, card)
+    flash_backward_shapes(torch, card)
+    got = nonzero(dict(build.LAUNCHES))
+    print(f"phase 11: {time.monotonic() - t_phase:.1f} s, hand-kernel launches {json.dumps(got)}"
+          f"  [{card}]")
+    check(not got, f"phase 11: Whisper or training launched hand kernels {got}")
+    torch.cuda.empty_cache()
+
+
+def whisper_inputs(torch, cfg, b, t, dev):
+    """Seeded prompt tokens and stub frames (B, enc_ctx, d_model) · 0.1."""
+    gen = torch.Generator(dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (b, t), generator=gen, device=dev, dtype=torch.int32)
+    frames = torch.randn((b, cfg.enc_ctx, cfg.d_model), generator=gen, device=dev) * 0.1
+    return {"tokens": tokens, "frames": frames}
+
+
+def whisper_serving(torch, card):
+    """(a) whisper-large-v3 uncut (seed-0 weights, fp32 parameters, bf16
+    compute, a bf16 cache): batch 4, 32-token prompts, 16 greedy tokens
+    through ``registry.build``'s prefill and decode (``serve.generate``),
+    twice; the encoder alone; peak memory; a steady decode step traced."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models import registry, whisper as TW
+
+    cfg = ARCHS[WHISPER]
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    api = registry.build(cfg, compute_dtype=torch.bfloat16, device=dev)
+    params = api.init()
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    b, t, gen = LM_SHAPE["batch"], LM_SHAPE["prompt_len"], LM_SHAPE["gen"]
+    batch = whisper_inputs(torch, cfg, b, t, dev)
+    t_max = t + gen
+    print(f"phase 11 (a) {WHISPER} uncut ({cfg.n_enc_layers} + {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, enc_ctx {cfg.enc_ctx}, vocab {cfg.vocab} padded "
+          f"{cfg.padded_vocab}): {n_bytes / 1e9:.3f} GB of fp32 parameters  [{card}]")
+    for run in ("first", "again"):
+        toks, t_prefill, t_decode = serve.generate(api, params, batch, t_max, gen)
+        print(f"phase 11 (a) {run} call, bf16 compute, batch {b}: prefill (encode + {t}-token "
+              f"prompt) {t_prefill * 1e3:.1f} ms; decode {gen - 1} steps -> "
+              f"{b * (gen - 1) / t_decode:.1f} tok/s; tokens {toks[0, :8].tolist()}  [{card}]")
+        check(toks.shape == (b, gen) and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              "phase 11 (a): generated tokens out of range")
+    with torch.inference_mode():
+        enc = traced(torch, lambda: TW.encode(params, cfg, batch["frames"], torch.bfloat16,
+                                              remat=False), reps=5)
+    print(f"phase 11 (a) encoder alone, {b} × {cfg.enc_ctx} frames: {enc['text']}  [{card}]")
+    logits, cache = api.prefill(params, batch, t_max)
+    check(bool(torch.isfinite(logits).all()), "phase 11 (a): non-finite prefill logits")
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    # rewrites the cache's slot `len` each call: the same step again
+    step = traced(torch, lambda: api.decode(params, {"tokens": tok}, cache))
+    print(f"phase 11 (a) decode step, cache of {t_max} + cross k/v of {cfg.enc_ctx}: "
+          f"{step['text']}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"reading the parameters once takes {n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 "
+          f"TB/s (bytes)  [{card}]")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def whisper_consistency(torch, card):
+    """(b) as (a) in fp32 compute (TF32 off): a decode step after a prefill
+    of T against the prefill of T + 1, through an fp32 and a bf16 cache,
+    held by phase 10's rule: the fp32 cache to max(2e-2, CHAOS_MARGIN × the
+    model's response to its embeddings scaled by 1 + 1e-7·N(0, 1)); the
+    bf16 cache to the larger of that and 2 × what the bf16 cache's stored
+    values' rounding moves the fp32 decode step."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import registry, whisper as TW
+
+    cfg = ARCHS[WHISPER]
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    api = registry.build(cfg, compute_dtype=torch.float32, device=dev)
+    params = api.init()
+    b, t = LM_SHAPE["batch"], LM_SHAPE["prompt_len"]
+    batch = whisper_inputs(torch, cfg, b, t, dev)
+    t_max = t + LM_SHAPE["gen"]
+    full, nxt, errs, caches, decs = None, None, {}, {}, {}
+    for cache_dtype in (torch.float32, torch.bfloat16):
+        name = str(cache_dtype).removeprefix("torch.")
+        logits, cache = TW.whisper_prefill(params, cfg, batch, t_max, torch.float32, cache_dtype)
+        if nxt is None:
+            nxt = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        decs[name], _ = api.decode(params, {"tokens": nxt}, cache)
+        if full is None:
+            full, _ = api.prefill(params, {**batch, "tokens": torch.cat([batch["tokens"], nxt],
+                                                                         1)}, t_max)
+        errs[name] = float((full[:, -1] - decs[name][:, -1]).abs().max())
+        caches[name] = cache
+        check(bool(torch.isfinite(logits).all() and torch.isfinite(decs[name]).all()),
+              f"phase 11 (b): non-finite logits ({name} cache)")
+    c16 = caches["bfloat16"]
+    values = {**c16, "self": {k: v.float() for k, v in c16["self"].items()},
+              "cross_k": c16["cross_k"].float(), "cross_v": c16["cross_v"].float()}
+    rounding = float((api.decode(params, {"tokens": nxt}, values)[0][:, -1]
+                      - decs["float32"][:, -1]).abs().max())
+    del caches, values, c16
+    with torch.no_grad():
+        kept = params["embed"].clone()
+        gen = torch.Generator(dev).manual_seed(9)
+        params["embed"].mul_(1 + 1e-7 * torch.randn(kept.shape, generator=gen, device=dev))
+        again, _ = api.prefill(params, {**batch, "tokens": torch.cat([batch["tokens"], nxt], 1)},
+                               t_max)
+        params["embed"].copy_(kept)
+    sens = float((again[:, -1] - full[:, -1]).abs().max())
+    base = max(2e-2, CHAOS_MARGIN * sens)
+    bounds = {"float32": base, "bfloat16": max(base, 2 * rounding)}
+    print(f"phase 11 (b) {WHISPER} uncut, fp32 compute: embeddings scaled by 1 + 1e-7·N(0, 1) "
+          f"move the last logits by {sens:.3e}; the bf16 cache's stored values move the fp32 "
+          f"step by {rounding:.3e}; prefill/decode max |Δ| fp32 cache {errs['float32']:.3e} "
+          f"(bound {bounds['float32']:.3e}), bf16 cache {errs['bfloat16']:.3e} (bound "
+          f"{bounds['bfloat16']:.3e}); max |logit| {float(full.abs().max()):.3f}  [{card}]")
+    for name, err in errs.items():
+        check(err <= bounds[name], f"phase 11 (b): prefill/decode differ by {err} ({name} cache)")
+    del params
+    torch.cuda.empty_cache()
+
+
+def whisper_card_vs_cpu(torch, card):
+    """(c) whisper-large-v3 at full width cut to W_DEPTH + W_DEPTH layers
+    (enc_ctx 1500 kept), fp32 compute, an fp32 cache: a prefill and
+    LM_STEPS greedy decode steps on the card against the port's CPU run,
+    logits within 1e-3 · max |logit|, greedy tokens equal."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import registry, whisper as TW
+
+    cfg = dataclasses.replace(ARCHS[WHISPER], n_layers=W_DEPTH, n_enc_layers=W_DEPTH)
+    t_max = LM_SHAPE["prompt_len"] + LM_SHAPE["gen"]
+    cpu_params = registry.build(cfg, device="cpu").init()
+    card_params = copy.deepcopy(cpu_params).to(torch.device("cuda"))
+    batch = whisper_inputs(torch, cfg, LM_SHAPE["batch"], LM_SHAPE["prompt_len"], "cpu")
+    runs = []
+    for params in (card_params, cpu_params):
+        dev = params["embed"].device
+        api = registry.build(cfg, compute_dtype=torch.float32, device=dev)
+        t0 = time.monotonic()
+        logits, cache = TW.whisper_prefill(params, cfg, {k: v.to(dev) for k, v in batch.items()},
+                                           t_max, torch.float32, torch.float32)
+        steps, toks = [logits.cpu()], []
+        for _ in range(LM_STEPS):
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            toks.append(tok.cpu())
+            logits, cache = api.decode(params, {"tokens": tok}, cache)
+            steps.append(logits.cpu())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        runs.append((steps, torch.cat(toks, 1), time.monotonic() - t0))
+    (c_steps, c_tok, c_s), (p_steps, p_tok, p_s) = runs
+    top = max(float(x.abs().max()) for x in p_steps)
+    errs = [float((a - b).abs().max()) for a, b in zip(c_steps, p_steps)]
+    same = torch.equal(c_tok, p_tok)
+    print(f"phase 11 (c) {WHISPER} full width cut to {W_DEPTH} + {W_DEPTH} layers, fp32 cache: "
+          f"prefill + {LM_STEPS} decode steps, card {c_s:.3f} s, CPU {p_s:.3f} s; logits max |Δ| "
+          f"by step {', '.join(f'{e:.3e}' for e in errs)} (limit {1e-3 * top:.3e}, max |logit| "
+          f"{top:.3f}); greedy tokens equal {same} {c_tok[0].tolist()}  [{card}]")
+    check(max(errs) <= 1e-3 * top and same, "phase 11 (c): the card and the CPU differ")
+    del card_params
+    torch.cuda.empty_cache()
+
+
+def train_full_width(torch, card):
+    """(d) qwen3-1.7b uncut with ``TrainConfig``'s defaults (bf16 compute,
+    fp32 parameters, remat, clip 1.0, weight decay 0.1) and the schedule
+    ``launch.train`` gives a run of TRAIN_SHAPE["steps"] steps (its lr
+    1e-3, warmup max(steps // 20, 5), total_steps the steps). The data's
+    next-token marginal is uniform, so a random model can lose only the
+    excess its random logits add to ln V (≈ 0.4 nats) in a few steps; at
+    the default lr 3e-4 over 100 warmup steps 8 steps move the loss less
+    than batches differ (±0.05). ``make_train_step`` on ``TokenPipeline``
+    batches; every loss and gradient norm finite, the last step's loss
+    below the first's, and step 0's batch again after the steps (no
+    update: its loss without batch-to-batch noise) below its loss at step
+    0; the median steady step, tokens/s, peak memory and one step
+    traced."""
+    from repro_torch import tree as TT
+    from repro_torch.configs import ARCHS, TrainConfig
+    from repro_torch.data.lm_tokens import TokenPipeline
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw_init
+
+    cfg = ARCHS[LM_ARCH]
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n = TRAIN_SHAPE["steps"]
+    tcfg = TrainConfig(lr=1e-3, total_steps=n, warmup=max(n // 20, 5))
+    params = registry.build(cfg, device=dev).init()
+    opt = adamw_init(params)
+    n_params = sum(x.numel() for x in TT.leaves(params))
+    step = registry.make_train_step(cfg, tcfg, device=dev)
+    b, t = TRAIN_SHAPE["batch"], TRAIN_SHAPE["seq"]
+    pipe = TokenPipeline(cfg.vocab, t, b, device=dev)
+    metrics, secs = [], []
+    for i in range(n):
+        batch = pipe.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params, opt, m = step(params, opt, batch)
+        secs.append(spent(torch, t0))
+        metrics.append(m)
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["gnorm"]) for m in metrics]
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 11 (d) {LM_ARCH} uncut ({n_params / 1e9:.3f} B parameters), TrainConfig "
+          f"defaults (lr {tcfg.lr}, warmup {tcfg.warmup} of {tcfg.total_steps} steps), batch "
+          f"{b} × {t}: step seconds {', '.join(f'{x:.3f}' for x in secs)}; median "
+          f"steady step {steady * 1e3:.1f} ms, {b * t / steady:.0f} tokens/s; peak memory "
+          f"{peak:.2f} GiB  [{card}]")
+    print(f"phase 11 (d) losses {', '.join(f'{x:.4f}' for x in losses)}; gradient norms "
+          f"{', '.join(f'{x:.3f}' for x in gnorms)}; lr at the last step "
+          f"{float(metrics[-1]['lr']):.3e}  [{card}]")
+    with torch.no_grad():
+        held = float(registry.build(cfg, device=dev).loss(params, pipe.batch(0))[0])
+    print(f"phase 11 (d) step 0's batch after the {n} steps: loss {held:.4f} (at step 0 "
+          f"{losses[0]:.4f})  [{card}]")
+    check(all(math.isfinite(x) for x in losses + gnorms), "phase 11 (d): a non-finite loss or norm")
+    check(losses[-1] < losses[0] and held < losses[0],
+          f"phase 11 (d): the loss did not fall ({losses[0]} -> {losses[-1]}; step 0's batch "
+          f"{held})")
+    batch = pipe.batch(n)
+    one = traced(torch, lambda: step(params, opt, batch), reps=1, warm=False)
+    print(f"phase 11 (d) one traced step: {one['text']}  [{card}]")
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu(torch, card):
+    """(e) one ``make_train_step`` (fp32 compute, remat, the default
+    schedule and clip) on the card against the port's CPU run from the same
+    parameters and batch: qwen3-1.7b at full width cut to LM_DEPTH layers
+    and whisper-large-v3 at full width cut to W_DEPTH + W_DEPTH layers with
+    enc_ctx cut to W_ENC_CTX, batch TRAIN_CUT. The loss, every gradient
+    leaf, and every parameter after the AdamW step, to TRAIN_TOL (stated
+    above). Then the card's step again from a copy of the same state:
+    bitwise equal (the replay the supervisor relies on)."""
+    import copy
+    import dataclasses
+
+    from repro_torch import tree as TT
+    from repro_torch.configs import ARCHS, TrainConfig
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw_init
+
+    tcfg = TrainConfig(compute_dtype="float32")
+    lr0 = tcfg.lr / tcfg.warmup  # the first step's rate
+    b, t = TRAIN_CUT["batch"], TRAIN_CUT["seq"]
+    cases = ((f"{LM_ARCH} full width cut to {LM_DEPTH} layers",
+              dataclasses.replace(ARCHS[LM_ARCH], n_layers=LM_DEPTH)),
+             (f"{WHISPER} full width cut to {W_DEPTH} + {W_DEPTH} layers, enc_ctx cut to "
+              f"{W_ENC_CTX}", dataclasses.replace(ARCHS[WHISPER], n_layers=W_DEPTH,
+                                                  n_enc_layers=W_DEPTH, enc_ctx=W_ENC_CTX)))
+    for label, cfg in cases:
+        gen = torch.Generator().manual_seed(3)
+        toks = torch.randint(0, cfg.vocab, (b, t + 1), generator=gen, dtype=torch.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.family == "audio":
+            batch["frames"] = torch.randn((b, cfg.enc_ctx, cfg.d_model), generator=gen) * 0.1
+        cpu_params = registry.build(cfg, device="cpu").init()
+        runs = {}
+        for name in ("card", "cpu", "card again"):
+            dev = torch.device("cpu" if name == "cpu" else "cuda")
+            params = copy.deepcopy(cpu_params).to(dev)
+            opt = adamw_init(params)
+            api = registry.build(cfg, compute_dtype=torch.float32, device=dev)
+            on = {k: v.to(dev) for k, v in batch.items()}
+            params.requires_grad_(True)
+            loss, _ = api.loss(params, on)
+            grads = torch.autograd.grad(loss, TT.leaves(params), allow_unused=True,
+                                        materialize_grads=True)
+            step = registry.make_train_step(cfg, tcfg, device=dev)
+            t0 = time.monotonic()
+            params, opt, m = step(params, opt, on)
+            secs = spent(torch, t0) if dev.type == "cuda" else time.monotonic() - t0
+            runs[name] = dict(loss=loss.detach().cpu(), grads=[g.cpu() for g in grads],
+                              params=[p.detach().cpu() for p in TT.leaves(params)],
+                              m=[x.cpu() for x in TT.leaves(opt["m"])],
+                              metrics={k: v.cpu() for k, v in m.items()}, secs=secs)
+            del params, opt, grads
+        on_card, cpu, again = runs["card"], runs["cpu"], runs["card again"]
+        lerr = abs(float(on_card["loss"]) - float(cpu["loss"]))
+        ltol = TRAIN_TOL["loss"] * abs(float(cpu["loss"]))
+        gmax = max(float(g.abs().max()) for g in cpu["grads"])
+        g_tols = [TRAIN_TOL["grad"] * float(g.abs().max()) + TRAIN_TOL["grad_floor"] * gmax
+                  for g in cpu["grads"]]
+        g_ratio = max(float((a - w).abs().max()) / tol
+                      for a, w, tol in zip(on_card["grads"], cpu["grads"], g_tols))
+        p_ratio = 0.0
+        clip = min(1.0, tcfg.grad_clip / max(float(cpu["metrics"]["gnorm"]), 1e-9))
+        for a, w, g, tol in zip(on_card["params"], cpu["params"], cpu["grads"], g_tols):
+            bound = (TRAIN_TOL["param"] * max(1.0, float(w.abs().max()))
+                     + lr0 * torch.clamp(2 * tol * clip / (g.abs() * clip + 1e-8), max=2.0))
+            p_ratio = max(p_ratio, float(((a - w).abs() / bound).max()))
+        same = all(torch.equal(x, y) for k in ("grads", "params", "m")
+                   for x, y in zip(on_card[k], again[k])) and \
+            all(torch.equal(on_card["metrics"][k], again["metrics"][k]) for k in again["metrics"])
+        print(f"phase 11 (e) {label}, fp32, batch {b} × {t}: train step card "
+              f"{on_card['secs']:.3f} s, CPU {cpu['secs']:.3f} s; loss {float(cpu['loss']):.6f}, "
+              f"|Δ| {lerr:.3e} (tolerance "
+              f"{ltol:.3e}); {len(g_tols)} gradient leaves, largest |Δ| / tolerance "
+              f"{g_ratio:.3f}; parameters after the AdamW step, largest |Δ| / tolerance "
+              f"{p_ratio:.3f}; the card's step again from the same state bitwise equal {same}"
+              f"  [{card}]")
+        check(lerr <= ltol and g_ratio <= 1.0 and p_ratio <= 1.0,
+              f"phase 11 (e) {label}: the card and the CPU differ")
+        check(same, f"phase 11 (e) {label}: two runs of one step differ")
+    torch.cuda.empty_cache()
+
+
+def train_launcher(torch, card):
+    """(f) ``python -m repro_torch.launch.train --arch qwen3-1.7b --reduced
+    --steps 12 --ckpt-every 4 --inject-failure 6`` on the card in a
+    subprocess, into a temporary directory, beside the same run with no
+    failure (the two started together): 1 restart, and its loss history
+    bitwise the uninterrupted one's (steps 0-5, then the checkpoint after
+    step 3 restored and steps 4-11 replayed). Then one train step twice
+    from one state, in bf16 compute at TRAIN_SHAPE, of reduced qwen3-1.7b,
+    qwen2-moe-a2.7b and whisper-large-v3: parameters, m, v and metrics
+    bitwise equal."""
+    import copy
+    import tempfile
+
+    from repro_torch import tree as TT
+    from repro_torch.configs import ARCHS, TrainConfig
+    from repro_torch.data.lm_tokens import TokenPipeline
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw_init
+
+    argv = ["--arch", LM_ARCH, "--reduced", "--steps", "12", "--ckpt-every", "4"]
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "PYTHONPATH": str(SRC)}
+        t0 = time.monotonic()
+        procs = {}
+        for name, extra in (("failed", ["--inject-failure", "6"]), ("clean", [])):
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv, *extra,
+                   "--ckpt", f"{tmp}/{name}", "--history", f"{tmp}/{name}.json"]
+            procs[name] = (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True, env=env,
+                                                 cwd=tmp))
+        outs = {}
+        for name, (cmd, proc) in procs.items():
+            out, _ = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"phase 11 (f) {' '.join(cmd[2:])} exited "
+                  f"{proc.returncode}:\n{out[-2000:]}")
+            outs[name] = (out, json.loads(Path(f"{tmp}/{name}.json").read_text()))
+        secs = time.monotonic() - t0
+    (f_out, failed), (_, clean) = outs["failed"], outs["clean"]
+    done = [line for line in f_out.splitlines() if line.startswith("[train] done")]
+    want = clean["losses"][:6] + clean["losses"][4:]
+    same = failed["losses"] == want
+    print(f"phase 11 (f) python -m repro_torch.launch.train {' '.join(argv)} --inject-failure 6 "
+          f"(and without the failure, together: {secs:.1f} s): {done[0] if done else '?'}; "
+          f"{failed['restarts']} restart, {len(failed['losses'])} losses recorded, bitwise the "
+          f"uninterrupted run's {same} (losses {clean['losses'][0]:.4f} -> "
+          f"{clean['losses'][-1]:.4f})  [{card}]")
+    check(failed["restarts"] == 1 and failed["steps_done"] == 12 and same,
+          "phase 11 (f): the restarted run is not the uninterrupted one")
+
+    b, t = TRAIN_SHAPE["batch"], TRAIN_SHAPE["seq"]
+    dev = torch.device("cuda")
+    for arch in (LM_ARCH, MOE_ARCH, WHISPER):
+        cfg = ARCHS[arch].reduced()
+        params = registry.build(cfg, device=dev).init()
+        opt = adamw_init(params)
+        batch = TokenPipeline(cfg.vocab, t, b, device=dev).batch(0)
+        if cfg.family == "audio":
+            batch["frames"] = whisper_inputs(torch, cfg, b, 1, dev)["frames"]
+        step = registry.make_train_step(cfg, TrainConfig(), device=dev)
+        outs = []
+        for _ in range(2):
+            p, o, m = step(copy.deepcopy(params), TT.tree_map(torch.clone, opt), batch)
+            outs.append(TT.leaves((p, o, m)))
+        same = all(torch.equal(x, y) for x, y in zip(*outs))
+        print(f"phase 11 (f) {arch} reduced, bf16 compute, batch {b} × {t}: one train step twice "
+              f"from one state, {len(outs[0])} tensors bitwise equal {same}  [{card}]")
+        check(same, f"phase 11 (f) {arch}: two runs of one train step differ")
+    torch.cuda.empty_cache()
+
+
+def flash_backward_shapes(torch, card):
+    """(g) the flash backward (fp32 operands) at the card's shapes against
+    autograd through the dense ``sdpa_ref`` in fp32: whisper's encoder
+    self-attention (batch 4, T = 1500, 20 heads of 64, "none") and qwen3's
+    training attention (batch 8, T = 128, causal, 8 KV heads × G = 2 of
+    128); dq, dk, dv within FLASH_TOL · max(1, max |y|), and both times."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import flash
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(11)
+    for label, (b, t, kv, g, dh), kind in (
+            (f"{WHISPER} encoder", (LM_SHAPE["batch"], ARCHS[WHISPER].enc_ctx, 20, 1, 64), "none"),
+            (f"{LM_ARCH} training", (TRAIN_SHAPE["batch"], TRAIN_SHAPE["seq"], 8, 2, 128),
+             "causal")):
+        q = torch.randn((b, t, kv, g, dh), generator=gen, device=dev, requires_grad=True)
+        k, v = (torch.randn((b, t, kv, dh), generator=gen, device=dev, requires_grad=True)
+                for _ in range(2))
+        do = torch.randn((b, t, kv, g, dh), generator=gen, device=dev)
+        grads, secs = {}, {}
+        for name, fn in (("flash", flash.flash_attention), ("sdpa_ref", flash.sdpa_ref)):
+            fn(q, k, v, dh ** -0.5, kind)  # warm
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = fn(q, k, v, dh ** -0.5, kind)
+            grads[name] = torch.autograd.grad(out, (q, k, v), do)
+            secs[name] = spent(torch, t0)
+        errs = [float((a - w).abs().max()) / max(1.0, float(w.abs().max()))
+                for a, w in zip(grads["flash"], grads["sdpa_ref"])]
+        print(f"phase 11 (g) flash backward at {label}'s shape {tuple(q.shape)}, {kind}: max |Δ| "
+              f"/ max(1, max |y|) dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} (limit "
+              f"{FLASH_TOL:.0e}); forward + backward flash {secs['flash'] * 1e3:.2f} ms, dense "
+              f"{secs['sdpa_ref'] * 1e3:.2f} ms (one call each, warm)  [{card}]")
+        check(max(errs) <= FLASH_TOL, f"phase 11 (g) {label}: the flash backward differs")
     torch.cuda.empty_cache()
 
 

@@ -567,6 +567,42 @@ def entry_points() -> list[Entry]:
             return api.decode, (params, {"tokens": tokens[:, :1]}, cache), {}
         return build
 
+    def whisper(step):
+        def build(dev):
+            from repro_torch.configs import ARCHS
+            from repro_torch.models import registry
+
+            cfg = ARCHS["whisper-large-v3"].reduced()
+            api = registry.build(cfg, compute_dtype=torch.float32, device=dev)
+            params = api.init()
+            gen = torch.Generator(dev).manual_seed(1)
+            batch = {"tokens": torch.randint(0, cfg.vocab, (2, 8), generator=gen, device=dev,
+                                             dtype=torch.int32),
+                     "frames": torch.randn((2, cfg.enc_ctx, cfg.d_model), generator=gen,
+                                           device=dev) * 0.1}
+            if step == "prefill":
+                return api.prefill, (params, batch, 16), {}
+            _, cache = api.prefill(params, batch, 16)
+            return api.decode, (params, {"tokens": batch["tokens"][:, :1]}, cache), {}
+        return build
+
+    def train(arch):
+        def build(dev):
+            from repro_torch.configs import ARCHS, TrainConfig
+            from repro_torch.models import registry
+            from repro_torch.optim import adamw_init
+
+            cfg = ARCHS[arch].reduced()
+            params = registry.build(cfg, compute_dtype=torch.float32, device=dev).init()
+            step = registry.make_train_step(cfg, TrainConfig(compute_dtype="float32"),
+                                            device=dev)
+            gen = torch.Generator(dev).manual_seed(1)
+            toks = torch.randint(0, cfg.vocab, (2, 9), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            return step, (params, adamw_init(params), batch), {}
+        return build
+
     ops_p, lv = f"{K}/ops.py", f"{C}/levels.py"
     lm_p, lm_root = f"{R.PACKAGE_DIR}/models/transformer.py", "models/transformer.py::{}".format
     lm_why = ("the LM serving path (reduced {}, fp32) holds no hand kernel, and the "
@@ -632,7 +668,20 @@ def entry_points() -> list[Entry]:
     ] + [Entry(f"lm_{step}_{fam}", lm(step, arch), 0, 0, None, lm_p, lm_root(root), (),
                lm_why(arch))
          for fam, arch in families.items()
-         for step, root in (("prefill", "lm_prefill"), ("decode", "lm_decode_step"))]
+         for step, root in (("prefill", "lm_prefill"), ("decode", "lm_decode_step"))] + [
+        Entry(f"whisper_{step}", whisper(step), 0, 0, None, f"{R.PACKAGE_DIR}/models/whisper.py",
+              f"models/whisper.py::{root}", (),
+              "Whisper's serving path (reduced whisper-large-v3, fp32) holds no hand kernel; "
+              "the reference's whisper_prefill and whisper_decode_step hold no pallas_call (0)")
+        for step, root in (("prefill", "whisper_prefill"), ("decode", "whisper_decode_step"))
+    ] + [
+        Entry(name, train(arch), 0, 0, None, f"{R.PACKAGE_DIR}/models/registry.py",
+              "models/registry.py::train_step", (),
+              f"one train step of reduced {arch} (loss, the flash and CE backward, the clip, "
+              "AdamW) holds no hand kernel; the reference's train step holds no pallas_call "
+              "(0)")
+        for name, arch in (("lm_train_step", "qwen3-1.7b"),
+                           ("lm_train_step_moe", "qwen2-moe-a2.7b"))]
 
 
 def run_entry(e: Entry, device: torch.device, allowlist=None, hot=None) -> tuple[list, dict]:

@@ -117,10 +117,22 @@ HOT: frozenset[str] = frozenset(
         "_dims", "_ddlerp", "_rkvwg", "_groupnorm_heads", "_shift", "_out", "_chunk_step",
         "rwkv6_mix_chunked", "rwkv6_mix_recurrent", "rwkv6_state_init", "rwkv6_cmix")]
     + [f"models/flash.py::{f}" for f in (
-        "_block_bias", "_pad_tk", "_mm_dtype", "_mm_operand", "flash_attention")]
+        "_block_bias", "_pad_tk", "_mm_dtype", "_mm_operand", "_block_logits", "_fwd_impl",
+        "forward", "backward", "flash_attention")]
     + [f"models/layers.py::{f}" for f in (
         "rmsnorm", "layernorm", "_gelu_tanh", "act_fn", "mlp", "rope_freqs", "apply_rope",
-        "unembed")]
+        "unembed", "_ce_chunk", "_chunk_logits", "forward", "backward", "chunked_ce",
+        "cross_entropy")]
+    # Whisper's serving path, and a train step (loss, backward, clip, AdamW)
+    + [f"models/attention.py::{f}" for f in ("cross_kv", "cross_forward")]
+    + [f"models/whisper.py::{f}" for f in (
+        "_sinusoid", "_positions", "_enc_layer", "encode", "_dec_layer", "_logits", "_decoder",
+        "decode_train", "whisper_loss", "whisper_cache_init", "whisper_prefill",
+        "whisper_decode_step")]
+    + ["models/transformer.py::remat_apply", "models/transformer.py::lm_loss"]
+    + [f"models/registry.py::{f}" for f in ("_detached", "_grads", "train_step")]
+    + [f"optim/adamw.py::{f}" for f in (
+        "warmup_cosine", "_flat", "clip_by_global_norm", "adamw_update")]
 )
 
 #: Names a ``capture.run`` key may be built from: each is one recording
@@ -181,6 +193,9 @@ ALLOWLIST: dict[str, str] = {
     # ---- infrastructure seams
     f"RPR002 {_P}/state.py::run_to_numpy::.cpu().numpy()":
         "checkpointing IS the device->host transfer of a run's state",
+    f"RPR002 {_P}/checkpoint/manager.py::_to_host::.numpy()":
+        "checkpointing IS the device->host transfer of the training state (on the "
+        "caller's thread, ordered with the step; the file I/O runs on its own thread)",
     f"RPR002 {_P}/batch/capture.py::__init__::torch.cuda.synchronize":
         "the recording: a CUDA-graph capture starts and ends on an idle device",
     f"RPR002 {_P}/batch/capture.py::__init__::torch.equal":

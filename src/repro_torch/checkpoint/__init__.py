@@ -1,0 +1,1 @@
+from .manager import CheckpointManager, restore_tree, save_tree  # noqa: F401

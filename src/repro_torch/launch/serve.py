@@ -77,7 +77,8 @@ def main(argv=None) -> int:
     if args.reduced:
         cfg = cfg.reduced()
     if cfg.family == "audio":
-        raise SystemExit("use serve with decoder-only archs; whisper demo lives in examples/")
+        raise SystemExit("use serve with decoder-only archs; Whisper serves through "
+                         "repro_torch.models.registry.build (its prefill takes frames)")
 
     dev = resolve_device(args.device)
     dtype = torch.float32 if args.reduced else torch.bfloat16

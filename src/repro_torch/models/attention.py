@@ -1,8 +1,7 @@
 """Attention mixers: GQA/MQA (RoPE, qk-norm, bias) and MLA (DeepSeek-V2),
 each in a full-sequence form and a one-token decode form against a cache,
-and the two dense masks (the counterpart of
-``src/repro/models/attention.py:21-207, 239-248``; cross-attention arrives
-with the audio family, ROADMAP 14a-iv).
+Whisper's cross-attention, and the two dense masks (the counterpart of
+``src/repro/models/attention.py``).
 
 GQA cache: {k, v: (B, T_max, KV, dh), len: () int32 on the device}. MLA
 cache, compressed (the point of MLA): {ckv: (B, T_max, kv_lora), kpe:
@@ -218,6 +217,36 @@ def mla_cache_init(cfg, batch: int, t_max: int, dtype, device=None) -> dict:
         "kpe": torch.zeros((batch, t_max, m.d_rope), dtype=dtype, device=device),
         "len": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+# =========================================================== cross-attention
+def cross_init(generator: torch.Generator, cfg, dtype) -> dict:
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {
+        "wq": dense_init(generator, (d, h, dh), dtype),
+        "wk": dense_init(generator, (d, h, dh), dtype),
+        "wv": dense_init(generator, (d, h, dh), dtype),
+        "wo": dense_init(generator, (h, dh, d), dtype, scale=(h * dh) ** -0.5),
+    }
+
+
+def cross_kv(p, enc_out: torch.Tensor):
+    """The encoder output's keys and values: (B, S, H, dh) each."""
+    dt = enc_out.dtype
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(dt))
+    return k, v
+
+
+def cross_forward(p, cfg, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, D) queries against the encoder's k/v (B, S, H, dh): blocked
+    attention with no mask, one query head a key head (G = 1)."""
+    from .flash import flash_attention
+
+    dt = x.dtype
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"].to(dt))
+    o = flash_attention(q[:, :, :, None, :], k, v, cfg.head_dim ** -0.5, "none", 0)
+    return torch.einsum("bthk,hkd->btd", o[:, :, :, 0, :], p["wo"].to(dt))
 
 
 # ------------------------------------------------------------------- masks

@@ -1,9 +1,13 @@
-"""Building blocks shared by every architecture, serving half (the
-counterpart of ``src/repro/models/layers.py:15-103``).
+"""Building blocks shared by every architecture (the counterpart of
+``src/repro/models/layers.py``).
 
 Parameters are tensors of the param dtype, cast to the compute dtype of
 the activations at each use; norms and RoPE compute in fp32 and cast
-back, as the reference does.
+back, as the reference does. The losses: ``cross_entropy`` over fp32
+logits, and ``chunked_ce``, which streams the unembedding product over
+vocabulary chunks in its forward and again in its backward, so that the
+(N, V) fp32 logits never exist (the reference's ``custom_vjp``; here a
+``torch.autograd.Function``).
 """
 from __future__ import annotations
 
@@ -108,3 +112,90 @@ def embed_init(generator: torch.Generator, vocab: int, d: int, dtype) -> torch.T
 def unembed(x: torch.Tensor, table: torch.Tensor, compute_dtype) -> torch.Tensor:
     """Logits in fp32 over the table's (padded) vocabulary."""
     return (x.to(compute_dtype) @ table.to(compute_dtype).T).float()
+
+
+def _ce_chunk(v_padded: int, want: int) -> int:
+    """Largest divisor of v_padded ≤ want (vocab is padded to 256s)."""
+    c = min(want, v_padded)
+    while v_padded % c:
+        c -= 1
+    return max(c, 1)
+
+
+def _chunk_logits(x: torch.Tensor, w: torch.Tensor, c0: int, chunk: int,
+                  vocab_valid: int) -> torch.Tensor:
+    """(N, chunk) fp32 logits of vocabulary ids [c0, c0 + chunk), padded ids
+    at −inf."""
+    logits = (x @ w[:, c0:c0 + chunk]).float()
+    ids = c0 + torch.arange(chunk, device=x.device)
+    return torch.where(ids < vocab_valid, logits, float("-inf"))
+
+
+class _ChunkedCE(torch.autograd.Function):
+    """Mean NLL over the valid rows, one vocabulary chunk at a time; the
+    backward recomputes each chunk's logits from the saved row
+    log-sum-exp (``layers.py:127-191``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, valid, vocab_valid: int, chunk: int):
+        n = x.shape[0]
+        dev = x.device
+        m = torch.full((n,), float("-inf"), dtype=torch.float32, device=dev)
+        l = torch.zeros((n,), dtype=torch.float32, device=dev)
+        ll = torch.zeros((n,), dtype=torch.float32, device=dev)
+        lab = labels.long()
+        for c0 in range(0, w.shape[1], chunk):
+            logits = _chunk_logits(x, w, c0, chunk, vocab_valid)
+            m_new = torch.maximum(m, logits.amax(-1))
+            l = l * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(-1)
+            m = m_new
+            inside = (lab >= c0) & (lab < c0 + chunk)
+            local = (lab - c0).clamp(0, chunk - 1)
+            ll = torch.where(inside, logits.gather(1, local[:, None])[:, 0], ll)
+        lse = m + torch.log(l.clamp_min(1e-30))
+        cnt = valid.sum().clamp_min(1)
+        loss = torch.where(valid, lse - ll, 0.0).sum() / cnt
+        ctx.save_for_backward(x, w, lab, valid, lse, cnt)
+        ctx.vocab_valid, ctx.chunk = vocab_valid, chunk
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, lab, valid, lse, cnt = ctx.saved_tensors
+        chunk = ctx.chunk
+        scale = (g * valid.float() / cnt)[:, None]  # (N, 1)
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dws = []
+        for c0 in range(0, w.shape[1], chunk):
+            wc = w[:, c0:c0 + chunk]
+            p = torch.exp(_chunk_logits(x, w, c0, chunk, ctx.vocab_valid) - lse[:, None])
+            ids = c0 + torch.arange(chunk, device=x.device)
+            onehot = (lab[:, None] == ids[None, :]).float()
+            dlog = (p - onehot) * scale  # (N, chunk)
+            dx = dx + (dlog.to(wc.dtype) @ wc.T).float()
+            dws.append(x.T @ dlog.to(x.dtype))  # (D, chunk)
+        return dx.to(x.dtype), torch.cat(dws, 1).to(w.dtype), None, None, None, None
+
+
+def chunked_ce(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
+               vocab_valid: int, chunk: int) -> torch.Tensor:
+    """Streaming softmax CE. x: (N, D); w: (D, V); labels/valid: (N,).
+    Returns the mean NLL over the valid rows; the chunk is the largest
+    divisor of V at most ``chunk``."""
+    return _ChunkedCE.apply(x, w, labels, valid, vocab_valid, _ce_chunk(w.shape[1], chunk))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None,
+                  vocab_valid: int | None = None) -> torch.Tensor:
+    """Token-mean CE; labels < 0 are ignored; padding vocab ids masked."""
+    if vocab_valid is not None and vocab_valid < logits.shape[-1]:
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab_valid
+        logits = torch.where(pad, torch.finfo(logits.dtype).min, logits)
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & (mask > 0)
+    safe = labels.clamp_min(0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, safe[..., None])[..., 0]
+    nll = (lse - ll) * valid
+    return nll.sum() / valid.sum().clamp_min(1)

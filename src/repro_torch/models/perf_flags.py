@@ -1,10 +1,16 @@
 """Performance toggles the port's models read (the counterpart of
-``src/repro/models/perf_flags.py``; the training flags arrive with their
-users).
+``src/repro/models/perf_flags.py``; ``SCATTER_GRADS`` anchors gradients to
+a mesh's sharding and comes with the port's multi-device training).
 
-  FLASH_BF16           run the flash QKᵀ / PV products with bf16 operands
-                       and fp32 accumulation; the softmax stays fp32.
-                       Default off: operands are upcast to fp32.
+  FLASH_BF16           run the flash QKᵀ / PV products (and the backward's
+                       dq, dk, dv products) with bf16 operands and fp32
+                       accumulation; the softmax stays fp32. Default off:
+                       operands are upcast to fp32.
+  CHUNKED_CE           > 0: ``lm_loss`` never makes the (B, T, V) fp32
+                       logits; it streams the unembedding product and the
+                       log-sum-exp over vocabulary chunks of this size
+                       (``layers.chunked_ce``, whose backward recomputes
+                       each chunk). Default 0, the reference's.
 
 The reference's MoE flags are not here. ``MOE_GATHER_DISPATCH`` builds the
 same dispatch buffer as a row gather so that GSPMD never reduces the
@@ -17,3 +23,4 @@ flag values.
 from __future__ import annotations
 
 FLASH_BF16 = False
+CHUNKED_CE = 0

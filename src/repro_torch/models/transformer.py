@@ -21,8 +21,12 @@ per-layer states and the decode cache keep the reference's stacked
 
 Decode writes the attention caches (GQA, MLA, the sites') in place and
 returns new stacked Mamba2 and RWKV6 states; ``len`` stays on the device.
-The audio family (``whisper.py``) raises ``NotImplementedError`` naming
-ROADMAP item 14a-iv.
+The serving entry points (``lm_prefill``, ``lm_decode_step``) run under
+``torch.inference_mode``; ``lm_forward`` and ``lm_loss`` are the training
+forward, differentiable, with each layer recomputed in the backward under
+``remat`` (``torch.utils.checkpoint``, where the reference has
+``jax.checkpoint``). Whisper's encoder-decoder (``whisper.py``) is built
+from the same blocks.
 """
 from __future__ import annotations
 
@@ -30,14 +34,15 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import rwkv6 as rk
 from . import ssm as mb
 from .attention import (gqa_cache_init, gqa_decode, gqa_forward, gqa_init, mla_cache_init,
                         mla_decode, mla_forward, mla_init)
-from .layers import (dense_init, embed_init, layernorm, layernorm_init, mlp, mlp_init, rmsnorm,
-                     rmsnorm_init, unembed)
+from .layers import (chunked_ce, cross_entropy, dense_init, embed_init, layernorm,
+                     layernorm_init, mlp, mlp_init, rmsnorm, rmsnorm_init, unembed)
 from .moe import moe_apply, moe_init
 
 #: the attention segment kinds → their cache's tensor names
@@ -80,21 +85,13 @@ def n_sites(cfg) -> int:
     return sum(1 for s in program(cfg) if s.kind == "site")
 
 
-def check_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` for the audio family, the one the port
-    does not run yet."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the audio family (whisper.py, cross-attention) is not ported yet: "
-            "ROADMAP item 14a-iv")
-
-
 # ------------------------------------------------------------------ modules
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module, read as the reference reads
     its pytree: ``p["attn"]["wq"]``, ``"bq" in p``; a None leaf (zamba2's
     ``lora`` when ``shared_attn_lora`` is 0) reads back as None. Parameters
-    carry no gradient (serving)."""
+    are made with ``requires_grad`` off (serving); a train step turns it on
+    (``registry.make_train_step``)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -123,7 +120,6 @@ class LM(ParamTree):
     (the shared block and its LoRA) where the config has them."""
 
     def __init__(self, cfg, tree: dict):
-        check_ported(cfg)
         super().__init__({k: v for k, v in tree.items() if k != "segments"})
         self.segments = nn.ModuleList(nn.ModuleList(Block(layer) for layer in seg)
                                       for seg in tree["segments"])
@@ -181,7 +177,6 @@ def lm_init(generator: torch.Generator, cfg, dtype=torch.float32) -> LM:
     """Random parameters on the generator's device: the reference's shapes
     and scales, drawn from ``generator`` (the draws are not the reference's:
     ``jax.random`` is not reproduced)."""
-    check_ported(cfg)
     segs = program(cfg)
     tree = {
         "embed": embed_init(generator, cfg.padded_vocab, cfg.d_model, dtype),
@@ -299,31 +294,74 @@ def _embed_inputs(p, cfg, batch: dict, compute_dtype):
     return x, mask, positions
 
 
-@torch.inference_mode()
-def lm_forward(p: LM, cfg, batch: dict, compute_dtype=torch.bfloat16, last_only: bool = False):
-    """Prefill forward. Returns (logits fp32, the summed MoE aux loss (0.0
-    without MoE), the states a segment: each layer's stacked (L, B, ...), a
-    site's (k, v) unstacked); ``last_only`` keeps the last position's
-    logits (the serving prefill: no (B, T, V) fp32 tensor)."""
+def remat_apply(fn, remat: bool, *args):
+    """``fn(*args)``, its activations recomputed in the backward when
+    ``remat`` and autograd records (the reference's ``jax.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def lm_forward(p: LM, cfg, batch: dict, compute_dtype=torch.bfloat16, remat: bool = True,
+               last_only: bool = False, return_hidden: bool = False,
+               keep_states: bool = True):
+    """The full-sequence forward. Returns (logits fp32, the summed MoE aux
+    loss (0.0 without MoE), the states a segment: each layer's stacked
+    (L, B, ...), a site's (k, v) unstacked; an empty list unless
+    ``keep_states``). ``last_only`` keeps the last position (the serving
+    prefill: no (B, T, V) fp32 tensor); ``return_hidden`` returns the
+    final-norm hidden states in place of logits (the chunked-CE path)."""
     x, mask, positions = _embed_inputs(p, cfg, batch, compute_dtype)
     aux_total = 0.0
     caches = []
     site_idx = 0
     for seg, seg_p in zip(program(cfg), p["segments"]):
         if seg.kind == "site":
-            x, kv = _site_apply(p["site"], cfg, site_idx, x, positions, mask)
-            caches.append(kv)
+            x, kv = remat_apply(_site_apply, remat, p["site"], cfg, site_idx, x, positions, mask)
+            if keep_states:
+                caches.append(kv)
             site_idx += 1
             continue
         states = []
         for layer_p in seg_p:
-            x, aux, state = block_apply(layer_p, cfg, seg.kind, x, positions, mask)
+            x, aux, state = remat_apply(block_apply, remat, layer_p, cfg, seg.kind, x,
+                                        positions, mask)
             aux_total = aux_total + aux
             states.append(state)
-        caches.append(tuple(torch.stack(parts) for parts in zip(*states)))
+        if keep_states:
+            caches.append(tuple(torch.stack(parts) for parts in zip(*states)))
     if last_only:
         x = x[:, -1:]
+    if return_hidden:
+        return _norm(cfg, p["final_norm"], x), aux_total, caches
     return _logits(p, cfg, x, compute_dtype), aux_total, caches
+
+
+def lm_loss(p: LM, cfg, batch: dict, compute_dtype=torch.bfloat16, remat: bool = True):
+    """(CE + the MoE aux loss, {"ce", "aux"}), both () fp32. The CE is the
+    token mean over labels ≥ 0, on the text positions only (a vlm's patch
+    positions carry no label), through ``chunked_ce`` when
+    ``perf_flags.CHUNKED_CE`` > 0 (its vocabulary chunk)."""
+    from . import perf_flags
+
+    labels = batch["labels"]
+    if perf_flags.CHUNKED_CE:
+        hid, aux, _ = lm_forward(p, cfg, batch, compute_dtype, remat, return_hidden=True,
+                                 keep_states=False)
+        if cfg.vis_ctx:
+            hid = hid[:, cfg.vis_ctx:]
+        w = p["embed"].T if cfg.tie_embed else p["unembed"]
+        n = hid.shape[0] * hid.shape[1]
+        ce = chunked_ce(hid.reshape(n, -1).to(compute_dtype), w.to(compute_dtype),
+                        labels.reshape(n), (labels >= 0).reshape(n), cfg.vocab,
+                        perf_flags.CHUNKED_CE)
+    else:
+        logits, aux, _ = lm_forward(p, cfg, batch, compute_dtype, remat, keep_states=False)
+        if cfg.vis_ctx:  # loss on text positions only
+            logits = logits[:, cfg.vis_ctx:]
+        ce = cross_entropy(logits, labels, vocab_valid=cfg.vocab)
+    aux = torch.zeros((), dtype=torch.float32, device=labels.device) + aux
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # -------------------------------------------------------------------- cache
@@ -395,7 +433,7 @@ def lm_prefill(p: LM, cfg, batch: dict, t_max: int, compute_dtype=torch.bfloat16
     (or MLA's ckv/kpe) in ``cache_dtype``, the Mamba2 conv window cast to
     it, the SSM and RWKV6 states fp32. Returns the last position's logits
     (B, 1, V_pad) and the cache."""
-    logits, _, caches = lm_forward(p, cfg, batch, compute_dtype, last_only=True)
+    logits, _, caches = lm_forward(p, cfg, batch, compute_dtype, remat=False, last_only=True)
     b, t = batch["tokens"].shape
     t += cfg.vis_ctx or 0
     dev = logits.device

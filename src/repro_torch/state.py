@@ -10,7 +10,9 @@ way. Together they let a caller start a port level from the reference's
 (adj, sep) after level ℓ − 1.
 
 The LM side has weights: :func:`lm_params_from_numpy` carries the JAX
-``lm_init`` pytree, as numpy arrays, into the port's ``models.LM``.
+``lm_init`` (or ``whisper_init``) pytree, as numpy arrays, into the port's
+``models.LM`` (or ``models.whisper.Whisper``), and
+:func:`opt_state_from_numpy` the reference's AdamW state into the port's.
 """
 from __future__ import annotations
 
@@ -91,17 +93,34 @@ def _tree_map(fn, tree):
             else fn(tree))
 
 
+def _unstack(cfg, what: str, stacked, count: int, dev) -> list:
+    flat = _tree_map(lambda a: _lm_tensor(a, dev), stacked)
+    if any(t.shape[0] != count for t in _leaves(flat)):
+        raise ValueError(f"{cfg.name}: a {what} stacks {count} layers")
+    return [_tree_map(lambda t, i=i: t[i].clone(), flat) for i in range(count)]
+
+
 def lm_params_from_numpy(cfg, tree: dict, device=None):
     """The reference's ``lm_init`` pytree as numpy arrays (``embed``,
     ``segments`` each stacked (L, ...) and None for a zamba2 ``site``,
     ``final_norm``, and ``unembed``, ``vis_proj`` and ``site`` (``shared``
     and ``lora``, or ``lora`` None) where present) → the port's
     ``models.transformer.LM`` on ``device`` (None: the CUDA card), one
-    ``Block`` a layer. The layouts are the reference's, so each array is
-    copied, and a segment's only unstacked; the dtypes are kept."""
+    ``Block`` a layer. For the audio family, ``whisper_init``'s tree
+    (``enc_blocks`` and ``dec_blocks`` stacked, ``enc_norm``, ``dec_norm``,
+    ``embed``) → ``models.whisper.Whisper``. The layouts are the
+    reference's, so each array is copied, and a stack's only unstacked; the
+    dtypes are kept."""
     from .models.transformer import LM, program
 
     dev = resolve_device(device)
+    if cfg.family == "audio":
+        from .models.whisper import Whisper
+
+        counts = {"enc_blocks": cfg.n_enc_layers, "dec_blocks": cfg.n_layers}
+        return Whisper(cfg, {k: (_unstack(cfg, k, v, counts[k], dev) if k in counts
+                                 else _tree_map(lambda a: _lm_tensor(a, dev), v))
+                             for k, v in tree.items()})
     segs = program(cfg)
     if len(tree["segments"]) != len(segs):
         raise ValueError(f"{cfg.name}: {len(tree['segments'])} segments given, the program "
@@ -114,14 +133,25 @@ def lm_params_from_numpy(cfg, tree: dict, device=None):
                                  "shared block is the tree's 'site')")
             layers.append([])
             continue
-        flat = _tree_map(lambda a: _lm_tensor(a, dev), stacked)
-        if any(t.shape[0] != spec.count for t in _leaves(flat)):
-            raise ValueError(f"{cfg.name}: a {spec.kind} segment stacks {spec.count} layers")
-        layers.append([_tree_map(lambda t, i=i: t[i].clone(), flat)
-                       for i in range(spec.count)])
+        layers.append(_unstack(cfg, f"{spec.kind} segment", stacked, spec.count, dev))
     rest = {k: _tree_map(lambda a: _lm_tensor(a, dev), v) for k, v in tree.items()
             if k != "segments"}
     return LM(cfg, {**rest, "segments": layers})
+
+
+def opt_state_from_numpy(cfg, state: dict, device=None) -> dict:
+    """The reference's ``adamw_init`` state as numpy arrays (``m``, ``v``
+    and, under ``master_fp32``, ``master``: trees of the parameters' shapes;
+    ``step``) → the port's (``optim.adamw_init``'s layout: each tree as
+    the plain containers of the parameter module, a stack's layers
+    unstacked; ``step`` a () int32 tensor) on ``device``."""
+    from .tree import tree_map
+
+    dev = resolve_device(device)
+    out = {name: tree_map(lambda t: t.detach(), lm_params_from_numpy(cfg, state[name], dev))
+           for name in ("m", "v", "master") if name in state}
+    out["step"] = torch.tensor(np.asarray(state["step"]), dtype=torch.int32, device=dev)
+    return out
 
 
 def _leaves(tree):

@@ -11,10 +11,11 @@
   plus dv ≠ dk, under both values of ``FLASH_BF16``;
 * ``gqa_forward`` and ``gqa_decode`` with qkv bias, qk-norm, MQA (kv = 1)
   and MHA;
-* ``build`` of the one family not yet ported, the audio family (Whisper),
-  raises ``NotImplementedError`` naming ROADMAP item 14a-iv; the other
-  segment kinds are held to the reference in test_torch_lm_families.py
-  and test_torch_lm_serve.py.
+* ``build`` of the audio family (Whisper, the last family ported) gives
+  the Whisper API, and ``launch.serve`` refuses it as the reference's
+  does, naming the path that serves it; the other segment kinds are held
+  to the reference in test_torch_lm_families.py and
+  test_torch_lm_serve.py, Whisper in test_torch_whisper.py.
 
 Inputs are seeded numpy arrays; parameters are random numpy trees (biases
 and norm scales included, so that no term is a no-op). fp32 tolerances
@@ -97,8 +98,15 @@ def test_every_decoder_builds_with_the_reference_cache(arch):
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_family_raises(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14a-iv"):
-        TR.build(T.ARCHS[arch].reduced(), device="cpu")
+    """The family ported last: ``build`` now gives its API, and only
+    ``launch.serve`` (decoder-only, as the reference's) refuses it."""
+    from repro_torch.launch import serve as TS
+    from repro_torch.models import whisper as TW
+
+    api = TR.build(T.ARCHS[arch].reduced(), device="cpu")
+    assert isinstance(api.init(), TW.Whisper)
+    with pytest.raises(SystemExit, match="registry.build"):
+        TS.main(["--reduced", "--device", "cpu", "--arch", arch])
 
 
 # ------------------------------------------------------------------ layers
