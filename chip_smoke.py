@@ -212,10 +212,32 @@ Phases, each of which exits non-zero on failure:
    qwen2-moe and whisper; (g) the flash backward at whisper's encoder
    shape (T = 1500, "none") and qwen3's training shape (T = 128, causal,
    GQA) against autograd through ``sdpa_ref`` in fp32. No hand kernel:
-   the launch counts stay 0. The phase prints its seconds.
+   the launch counts stay 0. The phase prints its seconds;
+12. LM training on a named mesh of logical shards of the card
+   (``models.sharding``, ``models.meshops``, ``state.shard_tree``,
+   ``registry.make_train_step(..., mesh=)``, ``optim.ef_compressed_mean``,
+   ``distributed.pipeline_apply``, ``distributed.remesh``): (a) the
+   planner on the production meshes (16, 16) and (2, 16, 16) for all ten
+   architectures' ``meta`` parameters and AdamW state, every split
+   dimension dividing, and the per-shard bytes of qwen3-1.7b and
+   deepseek-v2-236b; (b) qwen3-1.7b uncut on (data 2, model 2), four
+   logical shards, phase 11 (d)'s settings for 4 steps at 8 × 128: step
+   seconds, tokens/s, peak memory, the loss falling, the run again bitwise
+   the first, one step traced; (c) the sharded step against the
+   single-card step, fp32, qwen3 at full width cut to 2 layers, 4 × 64
+   with fewer labelled tokens in one data rank's rows, 2 steps,
+   ``grad_accum`` 1 and 2, to
+   tolerances stated before the run; (d) ``pipeline_apply`` over 4 stages
+   of qwen3's 28 blocks at full width (7 a stage), 4 microbatches of
+   2 × 128 hidden states, forward and gradient against the sequential
+   stack in fp32; (e) ``ef_compressed_mean`` over 4 pods on qwen3's full
+   ``embed`` leaf: the error within the scale, the residual exact, bitwise
+   the CPU run; (f) (b)'s state re-meshed 4 → 2 → 4 logical shards, bitwise
+   each way, and one step on each mesh. No hand kernel: the launch counts
+   stay 0. The phase prints its seconds.
 
-``python3 chip_smoke.py --phase 11`` runs phase 11 alone (no build, no
-``kernels`` line, no ``ok`` record).
+``python3 chip_smoke.py --phase 11`` (or ``--phase 12``) runs that phase
+alone (no build, no ``kernels`` line, no ``ok`` record).
 
 The last two lines are a ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -962,8 +984,9 @@ def main() -> int:
                          capture_output=True, text=True, check=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    if sys.argv[1:] == ["--phase", "11"]:
-        lm_training(torch, smi.stdout.strip())
+    only = {"11": lm_training, "12": lm_mesh_training}
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in only:
+        only[sys.argv[2]](torch, smi.stdout.strip())
         print(smi.stdout.strip())
         return 0
 
@@ -987,6 +1010,7 @@ def main() -> int:
     contracts(torch, card)
     lm_serving(torch, card)
     lm_training(torch, card)
+    lm_mesh_training(torch, card)
 
     sources = {"corr": ("src/repro_torch/csrc/corr.cu", "src/repro/kernels/corr.py:38"),
                "level0": ("src/repro_torch/csrc/level0.cu", "src/repro/kernels/level0.py:28"),
@@ -3428,6 +3452,486 @@ def flash_backward_shapes(torch, card):
               f"{FLASH_TOL:.0e}); forward + backward flash {secs['flash'] * 1e3:.2f} ms, dense "
               f"{secs['sdpa_ref'] * 1e3:.2f} ms (one call each, warm)  [{card}]")
         check(max(errs) <= FLASH_TOL, f"phase 11 (g) {label}: the flash backward differs")
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# phase 12: LM training on a named mesh of logical shards of the card
+MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")  # (b), (c), (f): 4 logical shards
+MESH_SMALL = (2, 1)  # (f): the re-mesh target, 2 logical shards (data 2, model 1)
+MESH_STEPS = 4  # (b)
+PIPE = dict(stages=4, micro=4, rows=2, seq=128)  # (d): 28 blocks, 7 a stage
+EF_PODS = 4  # (e)
+EF_SCALES = (1e-3, 1e-2, 1e-4, 3e-3)  # (e): each pod's gradient scale
+# (c): tolerances, stated before the run, TRAIN_TOL's over two steps. A
+# step's loss to TRAIN_TOL["loss"] · |loss|, its gradient norm to
+# TRAIN_TOL["grad"] · norm; with g_k step k's gradient leaf (the single
+# card's, autograd before the step), c_k its clip factor and δ_k =
+# TRAIN_TOL["grad"] · max |g_k| + TRAIN_TOL["grad_floor"] · max |g_k| over
+# the tree: m after two steps ((1 - b1) (b1 c_1 g_1 + c_2 g_2)) to 0.09 c_1
+# δ_1 + 0.1 c_2 δ_2; a parameter to TRAIN_TOL["param"] · max(1, max |p|) +
+# Σ_k lr_k · min(2, 2 c_k δ_k / (c_k |g_k| + eps)) (what δ moves Adam's
+# update, a step each). (f): the 2-shard step against the 4-shard step from
+# one state: both compute the one gradient of the whole batch, so only the
+# clip's sum over blocks differs, which Adam's scale-free update carries in proportion: the
+# metrics to TRAIN_TOL["loss"] relative, a parameter to TRAIN_TOL["param"] ·
+# max(1, max |p|).
+# (d): the pipeline against the sequential stack, fp32 (TF32 off): the
+# outputs to PIPE_TOL["fwd"] · max(1, max |y|); a gradient leaf to
+# PIPE_TOL["grad"] · max |leaf| + PIPE_TOL["grad_floor"] · max |grad| over
+# the tree (the microbatches' gradients add in another order).
+PIPE_TOL = dict(fwd=1e-5, grad=1e-4, grad_floor=1e-6)
+
+
+def lm_mesh_training(torch, card):
+    """Phase 12: the sharding planner, the sharded train step, the pipeline,
+    the compressed mean and re-meshing, with the launch counts reset just
+    before and read just after (none has a hand kernel)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_lm_mesh
+
+    t_phase = time.monotonic()
+    build.reset_launches()
+    mesh_planner(torch, card)
+    mesh = make_lm_mesh(MESH_SHAPE, MESH_AXES, devices=("cuda:0",) * math.prod(MESH_SHAPE))
+    mesh_train_full_width(torch, card, mesh)
+    mesh_vs_single(torch, card, mesh)
+    pipeline_full_width(torch, card)
+    ef_full_size(torch, card)
+    got = nonzero(dict(build.LAUNCHES))
+    print(f"phase 12: {time.monotonic() - t_phase:.1f} s, hand-kernel launches {json.dumps(got)}"
+          f"  [{card}]")
+    check(not got, f"phase 12: the mesh paths launched hand kernels {got}")
+    torch.cuda.empty_cache()
+
+
+def mesh_planner(torch, card):
+    """(a) every architecture's ``meta`` parameters and AdamW state planned
+    on the production meshes (16, 16) and (2, 16, 16) (planning meshes, no
+    devices): every split dimension divides its axes; the per-shard bytes
+    of qwen3-1.7b and deepseek-v2-236b."""
+    from repro_torch import tree as TT
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import registry
+    from repro_torch.models import sharding as SH
+
+    t0 = time.monotonic()
+    bad, sizes = [], {}
+    for arch, cfg in ARCHS.items():
+        params = registry.abstract_params(cfg)
+        opt = registry.abstract_opt_state(params)
+        for multi_pod in (False, True):
+            mesh = make_production_mesh(multi_pod=multi_pod)
+            pspecs = SH.param_specs(cfg, params, mesh)
+            per_shard = []
+            for tree, specs in ((params, pspecs), (opt, SH.opt_specs(cfg, opt, mesh, pspecs))):
+                total = 0
+                for leaf, spec in zip(TT.leaves(tree), TT.leaves(specs)):
+                    parts = math.prod(mesh.axis_size(e) for e in spec)
+                    bad += [(arch, tuple(leaf.shape), spec) for d, e in zip(leaf.shape, spec)
+                            if d % mesh.axis_size(e)]
+                    total += leaf.numel() * leaf.element_size() // parts
+                per_shard.append(total)
+            sizes[arch, multi_pod] = (sum(x.numel() for x in TT.leaves(params)), *per_shard)
+    print(f"phase 12 (a) the planner on the production meshes (16, 16) and (2, 16, 16), "
+          f"{len(ARCHS)} architectures × parameters and AdamW state: {len(bad)} split dimensions "
+          f"that do not divide; {time.monotonic() - t0:.1f} s  [{card}]")
+    for arch in (LM_ARCH, "deepseek-v2-236b"):
+        for multi_pod, shape in ((False, "(16, 16)"), (True, "(2, 16, 16)")):
+            n, pb, ob = sizes[arch, multi_pod]
+            print(f"phase 12 (a) {arch} ({n / 1e9:.3f} B parameters, fp32) on {shape}: per "
+                  f"shard {pb / 2**20:.1f} MiB of parameters, {ob / 2**20:.1f} MiB of AdamW "
+                  f"state  [{card}]")
+    check(not bad, f"phase 12 (a): split dimensions that do not divide: {bad[:4]}")
+
+
+def _place_lm(torch, cfg, mesh, dev):
+    """Seed-0 parameters drawn on ``dev``, placed on ``mesh`` by the planner,
+    and AdamW's state made rank by rank (no whole copy of it)."""
+    from repro_torch.models import registry
+    from repro_torch.models import sharding as SH
+    from repro_torch.optim import adamw_init
+    from repro_torch.state import shard_tree, sharded_map
+
+    params = registry.build(cfg, device=dev).init()
+    pspecs = SH.param_specs(cfg, params, mesh)
+    sp = shard_tree(params, pspecs, mesh)
+    ospecs = SH.opt_specs(cfg, {}, mesh, pspecs)
+    del params
+    torch.cuda.empty_cache()
+    return sp, sharded_map(adamw_init, sp, ospecs)
+
+
+def _state_on_host(sp, so):
+    return [x.detach().to("cpu", copy=True) for st in (sp, so) for r in range(st.mesh.size)
+            for x in st.leaves(r)]
+
+
+def mesh_train_full_width(torch, card, mesh):
+    """(b) qwen3-1.7b uncut trained on ``mesh`` (data 2, model 2: four
+    logical shards of the card) with phase 11 (d)'s settings for
+    MESH_STEPS steps (bf16 compute, fp32 parameters, remat, ``launch.train``'s
+    schedule), batch TRAIN_SHAPE's 8 × 128 from ``TokenPipeline``: every
+    loss and norm finite, and each step's batch again after the steps below
+    its loss at its step (the loss falls; the steps' own losses differ by
+    batch, ±0.05, more than 4 steps move them); step seconds, tokens/s,
+    peak memory. Then
+    (f), on this run's state. Then the run again, bitwise the first (every
+    block, every loss), and one step traced."""
+    from repro_torch.configs import ARCHS, TrainConfig
+    from repro_torch.data.lm_tokens import TokenPipeline
+    from repro_torch.models import registry
+    from repro_torch.models import sharding as SH
+    from repro_torch.state import gather_tree, shard_tree
+
+    cfg = ARCHS[LM_ARCH]
+    dev = torch.device("cuda")
+    n = MESH_STEPS
+    tcfg = TrainConfig(lr=1e-3, total_steps=n, warmup=max(n // 20, 5))
+    b, t = TRAIN_SHAPE["batch"], TRAIN_SHAPE["seq"]
+    pipe = TokenPipeline(cfg.vocab, t, b, device=dev)
+    raw = [pipe.batch(i) for i in range(n)]
+    batches = [shard_tree(x, SH.batch_specs(cfg, x, mesh), mesh) for x in raw]
+    step = registry.make_train_step(cfg, tcfg, mesh=mesh)
+
+    def run():
+        sp, so = _place_lm(torch, cfg, mesh, dev)
+        secs, mets = [], []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            sp, so, m = step(sp, so, batches[i])
+            secs.append(spent(torch, t0))
+            mets.append(m)
+        return sp, so, [float(m["loss"]) for m in mets], [float(m["gnorm"]) for m in mets], secs
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sp, so, losses, gnorms, secs = run()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    with torch.no_grad():
+        whole = gather_tree(sp, dev)
+        api = registry.build(cfg, device=dev)
+        held = [float(api.loss(whole, x)[0]) for x in raw]
+        del whole
+    print(f"phase 12 (b) {LM_ARCH} uncut on {mesh!r} (the model axis shards storage and the "
+          f"update), TrainConfig defaults (lr {tcfg.lr}, warmup {tcfg.warmup} of "
+          f"{tcfg.total_steps} steps), batch {b} × {t}: step seconds "
+          f"{', '.join(f'{x:.3f}' for x in secs)}; median steady step {steady * 1e3:.1f} ms, "
+          f"{b * t / steady:.0f} tokens/s; peak memory {peak:.2f} GiB  [{card}]")
+    print(f"phase 12 (b) losses {', '.join(f'{x:.4f}' for x in losses)}; gradient norms "
+          f"{', '.join(f'{x:.3f}' for x in gnorms)}; each step's batch again after the {n} "
+          f"steps: losses {', '.join(f'{x:.4f}' for x in held)}  [{card}]")
+    check(all(math.isfinite(x) for x in losses + gnorms), "phase 12 (b): a non-finite loss or norm")
+    check(all(h < x for h, x in zip(held, losses)),
+          f"phase 12 (b): the loss did not fall (each batch's loss at its step {losses}, after "
+          f"the steps {held})")
+    first = _state_on_host(sp, so)
+    remesh_full_width(torch, card, cfg, tcfg, sp, so, batches[0])
+    del sp, so
+    torch.cuda.empty_cache()
+    sp, so, l2, g2, s2 = run()
+    other = _state_on_host(sp, so)
+    same = l2 == losses and g2 == gnorms and len(other) == len(first) and all(
+        torch.equal(x, y) for x, y in zip(first, other))
+    print(f"phase 12 (b) again: step seconds {', '.join(f'{x:.3f}' for x in s2)}; every block "
+          f"of the parameters and AdamW state and every loss and norm bitwise the first run's: "
+          f"{same}  [{card}]")
+    check(same, "phase 12 (b) again: not bitwise the first run")
+    del other, first
+    one = traced(torch, lambda: step(sp, so, batches[0]), reps=1, warm=False)
+    print(f"phase 12 (b) one traced step: {one['text']}  [{card}]")
+    del sp, so
+    torch.cuda.empty_cache()
+
+
+def remesh_full_width(torch, card, cfg, tcfg, sp, so, batch):
+    """(f) (b)'s state from its 4 logical shards to MESH_SMALL's 2 and back
+    through ``distributed.remesh``: bitwise each way; then one step on each
+    mesh from that state, held to the tolerance stated above."""
+    from repro_torch.core.sharding import gather_named
+    from repro_torch.distributed import remesh
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import registry
+    from repro_torch.models import sharding as SH
+    from repro_torch.state import gather_tree, shard_tree
+
+    mesh4 = sp.mesh
+    mesh2 = make_lm_mesh(MESH_SMALL, MESH_AXES, devices=("cuda:0",) * math.prod(MESH_SMALL))
+    skel = registry.abstract_params(cfg)  # the planner reads the global shapes
+
+    def pspecs(mesh):
+        return SH.param_specs(cfg, skel, mesh)
+
+    def ospecs(mesh):
+        return SH.opt_specs(cfg, so.ranks[0], mesh, pspecs(mesh))
+
+    def same_leaves(a, b):
+        for i, shape in enumerate(a.shapes):
+            x = gather_named([a.leaves(r)[i] for r in range(a.mesh.size)], shape,
+                             a.spec_leaves()[i], a.mesh, a.mesh.devices[0])
+            y = gather_named([b.leaves(r)[i] for r in range(b.mesh.size)], shape,
+                             b.spec_leaves()[i], b.mesh, b.mesh.devices[0])
+            if not torch.equal(x, y):
+                return False
+        return True
+
+    t0 = time.monotonic()
+    p2, o2 = remesh(sp, pspecs, mesh2), remesh(so, ospecs, mesh2)
+    down = spent(torch, t0)
+    same_down = same_leaves(p2, sp) and same_leaves(o2, so)
+    t0 = time.monotonic()
+    p4, o4 = remesh(p2, pspecs, mesh4), remesh(o2, ospecs, mesh4)
+    up = spent(torch, t0)
+    same_up = all(torch.equal(x, y) for a, b in ((p4, sp), (o4, so)) for r in range(mesh4.size)
+                  for x, y in zip(a.leaves(r), b.leaves(r)))
+    del p4, o4
+    torch.cuda.empty_cache()
+    whole = gather_tree(batch, mesh4.devices[0])
+    b2 = shard_tree(whole, SH.batch_specs(cfg, whole, mesh2), mesh2)
+    p2, o2, m2 = registry.make_train_step(cfg, tcfg, mesh=mesh2)(p2, o2, b2)
+    sp, so, m4 = registry.make_train_step(cfg, tcfg, mesh=mesh4)(sp, so, batch)
+    m_err = max(abs(float(m2[k]) - float(m4[k])) / max(1e-30, TRAIN_TOL["loss"] *
+                                                       abs(float(m4[k]))) for k in m4)
+    p_ratio = 0.0
+    for i, shape in enumerate(sp.shapes):
+        x = gather_named([p2.leaves(r)[i] for r in range(mesh2.size)], shape,
+                         p2.spec_leaves()[i], mesh2, mesh2.devices[0])
+        y = gather_named([sp.leaves(r)[i] for r in range(mesh4.size)], shape,
+                         sp.spec_leaves()[i], mesh4, mesh4.devices[0])
+        p_ratio = max(p_ratio, float((x - y).abs().max()) / (
+            TRAIN_TOL["param"] * max(1.0, float(y.abs().max()))))
+    print(f"phase 12 (f) remesh of (b)'s state {mesh4!r} → {mesh2!r}: {down:.2f} s, every leaf "
+          f"bitwise {same_down}; and back: {up:.2f} s, every block bitwise {same_up}; one step "
+          f"on each: metrics largest |Δ| / tolerance {m_err:.3f}, parameters {p_ratio:.3f}  "
+          f"[{card}]")
+    check(same_down and same_up, "phase 12 (f): re-meshing changed the state")
+    check(m_err <= 1.0 and p_ratio <= 1.0, "phase 12 (f): the 2-shard step differs")
+    del p2, o2, b2
+
+
+def mesh_vs_single(torch, card, mesh):
+    """(c) the sharded step on ``mesh`` against the single-card step
+    (``make_train_step`` without a mesh) from the same state: qwen3-1.7b at
+    full width cut to LM_DEPTH layers, fp32 compute (TF32 off), TRAIN_CUT's
+    sequence and twice its batch (4 × 64: ``grad_accum`` 2 makes
+    microbatches of 2 rows, one a data rank), 2 steps on seeded tokens
+    whose labels are ignored in half of row 0 (data rank 0 holds fewer
+    labelled tokens than rank 1: the step's token mean is the batch's),
+    with ``grad_accum`` 1 and 2, held to the tolerances stated above."""
+    import copy
+    import dataclasses
+
+    from repro_torch import tree as TT
+    from repro_torch.configs import ARCHS, TrainConfig
+    from repro_torch.models import registry
+    from repro_torch.models import sharding as SH
+    from repro_torch.optim import adamw_init
+    from repro_torch.state import gather_tree, shard_tree, sharded_map
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(ARCHS[LM_ARCH], n_layers=LM_DEPTH)
+    b, t = 2 * TRAIN_CUT["batch"], TRAIN_CUT["seq"]
+    gen = torch.Generator().manual_seed(3)
+    batches = []
+    for _ in range(2):
+        toks = torch.randint(0, cfg.vocab, (b, t + 1), generator=gen, dtype=torch.int32)
+        labels = toks[:, 1:].clone()
+        labels[0, : t // 2] = -1
+        batches.append({"tokens": toks[:, :-1].to(dev), "labels": labels.to(dev)})
+    init = registry.build(cfg, device=dev).init()
+    api = registry.build(cfg, compute_dtype=torch.float32, device=dev)
+    for accum in (1, 2):
+        tcfg = TrainConfig(compute_dtype="float32", grad_accum=accum)
+        params = copy.deepcopy(init)
+        opt = adamw_init(params)
+        single = registry.make_train_step(cfg, tcfg, device=dev)
+        ref = []
+        for batch in batches:
+            params.requires_grad_(True)
+            loss, _ = api.loss(params, batch)
+            grads = [g.detach() for g in torch.autograd.grad(loss, TT.leaves(params))]
+            t0 = time.monotonic()
+            params, opt, m = single(params, opt, batch)
+            ref.append(dict(grads=grads, secs=spent(torch, t0), **{k: float(v) for k, v in
+                                                                   m.items()}))
+        pspecs = SH.param_specs(cfg, init, mesh)
+        sp = shard_tree(init, pspecs, mesh)
+        so = sharded_map(adamw_init, sp, SH.opt_specs(cfg, {}, mesh, pspecs))
+        sharded = registry.make_train_step(cfg, tcfg, mesh=mesh)
+        got = []
+        for batch in batches:
+            t0 = time.monotonic()
+            sp, so, m = sharded(sp, so, shard_tree(batch, SH.batch_specs(cfg, batch, mesh), mesh))
+            got.append(dict(secs=spent(torch, t0), **{k: float(v) for k, v in m.items()}))
+        full_p, full_o = gather_tree(sp, dev), gather_tree(so, dev)
+        ratios = {"loss": 0.0, "gnorm": 0.0, "m": 0.0, "param": 0.0}
+        for r, g in zip(ref, got):
+            ratios["loss"] = max(ratios["loss"], abs(g["loss"] - r["loss"]) /
+                                 (TRAIN_TOL["loss"] * abs(r["loss"])))
+            ratios["gnorm"] = max(ratios["gnorm"], abs(g["gnorm"] - r["gnorm"]) /
+                                  (TRAIN_TOL["grad"] * r["gnorm"]))
+        clips = [min(1.0, tcfg.grad_clip / max(r["gnorm"], 1e-9)) for r in ref]
+        deltas = []
+        for r in ref:
+            gmax = max(float(x.abs().max()) for x in r["grads"])
+            deltas.append([TRAIN_TOL["grad"] * float(x.abs().max()) + TRAIN_TOL["grad_floor"] * gmax
+                           for x in r["grads"]])
+        leaves = zip(TT.leaves(full_p), TT.leaves(params), TT.leaves(full_o["m"]),
+                     TT.leaves(opt["m"]))
+        for i, (pa, pw, ma, mw) in enumerate(leaves):
+            tol_m = 0.09 * clips[0] * deltas[0][i] + 0.1 * clips[1] * deltas[1][i]
+            ratios["m"] = max(ratios["m"], float((ma - mw).abs().max()) / tol_m)
+            bound = TRAIN_TOL["param"] * max(1.0, float(pw.detach().abs().max()))
+            for r, c, d in zip(ref, clips, deltas):
+                bound = bound + r["lr"] * torch.clamp(
+                    2 * c * d[i] / (c * r["grads"][i].abs() + 1e-8), max=2.0)
+            ratios["param"] = max(ratios["param"], float(((pa - pw.detach()).abs() / bound).max()))
+        one_s = ", ".join(f"{r['secs']:.3f}" for r in ref)
+        mesh_s = ", ".join(f"{g['secs']:.3f}" for g in got)
+        ref_losses = ", ".join(f"{r['loss']:.6f}" for r in ref)
+        print(f"phase 12 (c) {LM_ARCH} full width cut to {LM_DEPTH} layers, fp32, batch {b} × "
+              f"{t}, grad_accum {accum}, 2 steps: single card {one_s} s, {mesh!r} {mesh_s} s; "
+              f"losses {ref_losses}; largest |Δ| / tolerance: loss "
+              f"{ratios['loss']:.3f}, gradient norm {ratios['gnorm']:.3f}, m {ratios['m']:.3f}, "
+              f"parameters {ratios['param']:.3f}  [{card}]")
+        check(max(ratios.values()) <= 1.0,
+              f"phase 12 (c) grad_accum {accum}: the sharded step and the single card differ")
+        del params, opt, sp, so, full_p, full_o, ref
+    del init
+    torch.cuda.empty_cache()
+
+
+def _stack(torch, trees):
+    """Trees of one structure (plain dicts) → one tree of stacked leaves."""
+    if isinstance(trees[0], dict):
+        return {k: _stack(torch, [t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def pipeline_full_width(torch, card):
+    """(d) ``pipeline_apply`` over ("pipe",) = PIPE["stages"] logical shards
+    of the card: qwen3-1.7b's decoder blocks at full width, fp32 (TF32 off),
+    split evenly over the stages, PIPE["micro"] microbatches of
+    PIPE["rows"] × PIPE["seq"] hidden states; the outputs and the gradient
+    of every stacked leaf (for a fixed random cotangent) against the
+    sequential stack run with autograd, held to PIPE_TOL."""
+    from repro_torch import tree as TT
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import pipeline_apply
+    from repro_torch.distributed.pipeline import split_stages
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device("cuda")
+    cfg = ARCHS[LM_ARCH]
+    n_s, m, rows, seq = PIPE["stages"], PIPE["micro"], PIPE["rows"], PIPE["seq"]
+    model = registry.build(cfg, compute_dtype=torch.float32, device=dev).init()
+    with torch.no_grad():
+        stacked = _stack(torch, [TT.as_tree(blk) for blk in model["segments"][0]])
+    del model
+    torch.cuda.empty_cache()
+    leaves = TT.leaves(stacked)
+    for x in leaves:
+        x.requires_grad_(True)
+    n_layers = leaves[0].shape[0]
+    per = n_layers // n_s
+    mesh = make_lm_mesh((n_s,), ("pipe",), devices=("cuda:0",) * n_s)
+    positions = torch.arange(seq, dtype=torch.int32, device=dev).expand(rows, seq)
+
+    def layer(params, i, x):
+        y, _, _ = tf.block_apply(TT.tree_map(lambda w: w[i], params), cfg, "attn_mlp", x,
+                                 positions, ("causal", 0))
+        return y
+
+    def stage_fn(params, x):
+        for i in range(per):
+            x = layer(params, i, x)
+        return x
+
+    gen = torch.Generator(dev).manual_seed(13)
+    xs = torch.randn((m, rows, seq, cfg.d_model), generator=gen, device=dev)
+    cot = torch.randn((m, rows, seq, cfg.d_model), generator=gen, device=dev)
+    t0 = time.monotonic()
+    out = pipeline_apply(stage_fn, split_stages(stacked, n_s), xs, mesh)
+    g_pipe = torch.autograd.grad((out * cot).sum(), leaves)
+    pipe_s = spent(torch, t0)
+    out = out.detach()
+    t0 = time.monotonic()
+    ys = []
+    for x in xs:
+        for i in range(n_layers):
+            x = layer(stacked, i, x)
+        ys.append(x)
+    ref = torch.stack(ys)
+    g_seq = torch.autograd.grad((ref * cot).sum(), leaves)
+    seq_s = spent(torch, t0)
+    ref = ref.detach()
+    fwd = float((out - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+    gmax = max(float(g.abs().max()) for g in g_seq)
+    g_ratio = max(float((a - w).abs().max()) / (PIPE_TOL["grad"] * float(w.abs().max())
+                                                 + PIPE_TOL["grad_floor"] * gmax)
+                  for a, w in zip(g_pipe, g_seq))
+    print(f"phase 12 (d) pipeline_apply, {LM_ARCH}'s {n_layers} blocks at full width over "
+          f"{mesh!r}, {per} a stage, {m} microbatches of {rows} × {seq}, fp32: forward + "
+          f"backward {pipe_s:.3f} s ({m + n_s - 1} ticks), the sequential stack {seq_s:.3f} s; "
+          f"outputs max |Δ| / max(1, max |y|) {fwd:.3e} (limit {PIPE_TOL['fwd']:.0e}); "
+          f"{len(leaves)} gradient leaves, largest |Δ| / tolerance {g_ratio:.3f}  [{card}]")
+    check(fwd <= PIPE_TOL["fwd"] and g_ratio <= 1.0,
+          "phase 12 (d): the pipeline and the sequential stack differ")
+    del stacked, leaves, g_pipe, g_seq, out, ref
+    torch.cuda.empty_cache()
+
+
+def ef_full_size(torch, card):
+    """(e) ``ef_compressed_mean`` over ("pod",) = EF_PODS logical shards of
+    the card on a full-size gradient leaf, qwen3-1.7b's ``embed`` (its
+    padded vocabulary × d_model, fp32; each pod's gradient a seeded normal
+    at its EF_SCALES scale, a small residual): |mean − the true mean| ≤ the
+    shared scale, each residual exactly g32 − dequant(q), and every output
+    bitwise the same function's on CPU tensors of the same inputs."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import registry
+    from repro_torch.optim import ef_compressed_mean
+
+    dev = torch.device("cuda")
+    shape = tuple(registry.abstract_params(ARCHS[LM_ARCH])["embed"].shape)
+    mesh = make_lm_mesh((EF_PODS,), ("pod",), devices=("cuda:0",) * EF_PODS)
+    gen = torch.Generator(dev).manual_seed(12)
+    g = [torch.randn(shape, generator=gen, device=dev) * s for s in EF_SCALES]
+    res = [torch.randn(shape, generator=gen, device=dev) * 1e-6 for _ in EF_SCALES]
+    ef_compressed_mean(g, res, "pod", mesh)  # warm
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    means, new = ef_compressed_mean(g, res, "pod", mesh)
+    secs = spent(torch, t0)
+    with torch.no_grad():
+        g32 = [a + r for a, r in zip(g, res)]
+        scale = max(float(x.abs().max()) for x in g32)
+        scale = torch.tensor(scale, dtype=torch.float32, device=dev).clamp_min(1e-12) / 127.0
+        true = g32[0]
+        for x in g32[1:]:
+            true = true + x
+        err = float((means[0] - true / EF_PODS).abs().max())
+        exact = all(torch.equal(nr, x - torch.round(x / scale).clamp(-127, 127) * scale)
+                    for nr, x in zip(new, g32))
+        del g32, true
+    cpu_mesh = make_lm_mesh((EF_PODS,), ("pod",), devices=("cpu",) * EF_PODS)
+    t0 = time.monotonic()
+    c_means, c_new = ef_compressed_mean([x.cpu() for x in g], [x.cpu() for x in res], "pod",
+                                        cpu_mesh)
+    cpu_s = time.monotonic() - t0
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(means + new, c_means + c_new))
+    print(f"phase 12 (e) ef_compressed_mean over {mesh!r} on a {shape} fp32 leaf ({LM_ARCH}'s "
+          f"embed): {secs * 1e3:.1f} ms (one warm call; CPU {cpu_s:.1f} s); |mean − true mean| "
+          f"{err:.3e} against the scale {float(scale):.3e}; residuals exactly g32 − dequant(q) "
+          f"{exact}; bitwise the CPU run {same}  [{card}]")
+    check(err <= float(scale) and exact and same, "phase 12 (e): the compressed mean is wrong")
+    del g, res, means, new, c_means, c_new
     torch.cuda.empty_cache()
 
 

@@ -603,6 +603,68 @@ def entry_points() -> list[Entry]:
             return step, (params, adamw_init(params), batch), {}
         return build
 
+    def sharded_train(dev):
+        from repro_torch.configs import ARCHS, TrainConfig
+        from repro_torch.launch.mesh import make_lm_mesh
+        from repro_torch.models import registry
+        from repro_torch.models import sharding as SH
+        from repro_torch.optim import adamw_init
+        from repro_torch.state import shard_tree
+
+        cfg = ARCHS["qwen3-1.7b"].reduced()
+        mesh = make_lm_mesh((2, 2), ("data", "model"), devices=(dev,) * 4)
+        params = registry.build(cfg, compute_dtype=torch.float32, device=dev).init()
+        opt = adamw_init(params)
+        gen = torch.Generator(dev).manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (4, 9), generator=gen, device=dev, dtype=torch.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        pspecs = SH.param_specs(cfg, params, mesh)
+        args = (shard_tree(params, pspecs, mesh),
+                shard_tree(opt, SH.opt_specs(cfg, opt, mesh, pspecs), mesh),
+                shard_tree(batch, SH.batch_specs(cfg, batch, mesh), mesh))
+        step = registry.make_train_step(cfg, TrainConfig(compute_dtype="float32", grad_accum=2),
+                                        mesh=mesh)
+        return step, args, {}
+
+    def ef_mean(dev):
+        from repro_torch.launch.mesh import make_lm_mesh
+        from repro_torch.optim import ef_compressed_mean
+
+        mesh = make_lm_mesh((4,), ("pod",), devices=(dev,) * 4)
+        gen = torch.Generator(dev).manual_seed(1)
+        g = [torch.randn((64, 32), generator=gen, device=dev) for _ in range(4)]
+        return ef_compressed_mean, (g, [torch.zeros_like(x) for x in g], "pod", mesh), {}
+
+    def pipeline(dev):
+        from repro_torch.distributed import pipeline_apply
+        from repro_torch.distributed.pipeline import split_stages
+        from repro_torch.launch.mesh import make_lm_mesh
+
+        mesh = make_lm_mesh((4,), ("pipe",), devices=(dev,) * 4)
+        gen = torch.Generator(dev).manual_seed(1)
+        w = torch.randn((8, 16, 16), generator=gen, device=dev) * 0.2
+
+        def stage_fn(params, x):
+            for wi in params["w"]:
+                x = torch.tanh(x @ wi) + x
+            return x
+
+        xs = torch.randn((6, 4, 16), generator=gen, device=dev)
+        return pipeline_apply, (stage_fn, split_stages({"w": w}, 4), xs, mesh), {}
+
+    def remeshing(dev):
+        from repro_torch.core.sharding import Spec
+        from repro_torch.distributed import remesh
+        from repro_torch.launch.mesh import make_lm_mesh
+        from repro_torch.state import shard_tree
+
+        m8 = make_lm_mesh((4, 2), ("data", "model"), devices=(dev,) * 8)
+        m4 = make_lm_mesh((2, 2), ("data", "model"), devices=(dev,) * 4)
+        tree = {"w": torch.arange(64.0, device=dev).reshape(8, 8),
+                "b": torch.arange(8.0, device=dev)}
+        specs = {"w": Spec(("data", "model")), "b": Spec((None,))}
+        return remesh, (shard_tree(tree, specs, m8), lambda mesh: specs, m4), {}
+
     ops_p, lv = f"{K}/ops.py", f"{C}/levels.py"
     lm_p, lm_root = f"{R.PACKAGE_DIR}/models/transformer.py", "models/transformer.py::{}".format
     lm_why = ("the LM serving path (reduced {}, fp32) holds no hand kernel, and the "
@@ -681,7 +743,26 @@ def entry_points() -> list[Entry]:
               "AdamW) holds no hand kernel; the reference's train step holds no pallas_call "
               "(0)")
         for name, arch in (("lm_train_step", "qwen3-1.7b"),
-                           ("lm_train_step_moe", "qwen2-moe-a2.7b"))]
+                           ("lm_train_step_moe", "qwen2-moe-a2.7b"))] + [
+        Entry("lm_train_step_sharded", sharded_train, 0, 0, None,
+              f"{R.PACKAGE_DIR}/models/registry.py", "models/registry.py::sharded_train_step",
+              (), "one train step of reduced qwen3-1.7b on a (data 2, model 2) mesh of logical "
+              "shards, grad_accum 2 (the compute copy, the gathered batch's gradient sliced "
+              "into blocks, the clip over blocks, AdamW a block) holds no hand kernel; the "
+              "reference's GSPMD step holds no pallas_call (0)"),
+        Entry("ef_compressed_mean", ef_mean, 0, 0, None, f"{R.PACKAGE_DIR}/optim/compress.py",
+              "optim/compress.py::ef_compressed_mean", (),
+              "the int8 error-feedback mean over a 4-rank pod axis: plain PyTorch ops, as the "
+              "reference's is jnp under shard_map (no pallas_call)"),
+        Entry("pipeline_apply", pipeline, 0, 0, None, f"{R.PACKAGE_DIR}/distributed/pipeline.py",
+              "distributed/pipeline.py::pipeline_apply", (),
+              "the pipeline's M + S - 1 ticks over 4 stages: no hand kernel, as the "
+              "reference's scan under shard_map holds no pallas_call"),
+        Entry("remesh", remeshing, 0, 0, None, f"{R.PACKAGE_DIR}/distributed/elastic.py",
+              "distributed/elastic.py::_regroup", (),
+              "re-meshing 8 → 4 ranks: the copy down and up a block are remesh's "
+              "allowlisted seam; the regrouping on the host runs no kernel"),
+    ]
 
 
 def run_entry(e: Entry, device: torch.device, allowlist=None, hot=None) -> tuple[list, dict]:

@@ -133,6 +133,20 @@ HOT: frozenset[str] = frozenset(
     + [f"models/registry.py::{f}" for f in ("_detached", "_grads", "train_step")]
     + [f"optim/adamw.py::{f}" for f in (
         "warmup_cosine", "_flat", "clip_by_global_norm", "adamw_update")]
+    # training on a named mesh: the sharded step, the anchors, the compressed
+    # mean, the pipeline's ticks and the re-meshing
+    + [f"models/registry.py::{f}" for f in ("sharded_train_step", "_sum_in_order")]
+    + [f"models/meshops.py::{f}" for f in (
+        "current_mesh", "use_mesh", "_filter", "shard_act", "shard_residual", "shard_logits")]
+    + ["models/sharding.py::mesh_axes", "optim/adamw.py::norm_and_scale",
+       "optim/compress.py::ef_compressed_mean", "state.py::gather_tree",
+       "state.py::shard_tree", "state.py::leaves", "state.py::spec_leaves",
+       "tree.py::tree_map", "tree.py::as_tree"]
+    + [f"core/sharding.py::{f}" for f in (
+        "gather_named", "shard_named", "block_slices", "block_index", "distinct_ranks",
+        "spec_axes", "check_spec")]
+    + [f"distributed/pipeline.py::{f}" for f in ("pipeline_apply", "_stage_device")]
+    + ["distributed/elastic.py::_host", "distributed/elastic.py::_regroup"]
 )
 
 #: Names a ``capture.run`` key may be built from: each is one recording
@@ -193,6 +207,9 @@ ALLOWLIST: dict[str, str] = {
     # ---- infrastructure seams
     f"RPR002 {_P}/state.py::run_to_numpy::.cpu().numpy()":
         "checkpointing IS the device->host transfer of a run's state",
+    f"RPR002 {_P}/distributed/elastic.py::remesh::.cpu()":
+        "re-meshing goes through the host, as the reference's device_get/device_put "
+        "(src/repro/distributed/elastic.py:20), on a topology change, not a step",
     f"RPR002 {_P}/checkpoint/manager.py::_to_host::.numpy()":
         "checkpointing IS the device->host transfer of the training state (on the "
         "caller's thread, ordered with the step; the file I/O runs on its own thread)",

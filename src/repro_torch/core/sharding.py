@@ -18,9 +18,18 @@ is a :class:`Sharded`: the list of its per-shard tensors, each on its
 shard's device, with the layout it was placed by (``row_spec``,
 ``batch_spec`` or ``replicated_spec``). A collective is an explicit copy
 between those tensors (``core/distributed.py``).
+
+The LM side's meshes have named axes, as ``jax.make_mesh((2, 2, 2),
+("pod", "data", "model"))`` has them: a :class:`NamedMesh` beside the flat
+:class:`Mesh`, its ranks in row-major order over the axes, and a
+:class:`Spec` a tensor (the reference's ``PartitionSpec``) saying which
+axes split each dimension. :func:`shard_named` and :func:`gather_named`
+place a tensor on such a mesh and back; ``state.shard_tree`` does it for a
+tree.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -195,3 +204,156 @@ def replicate(x: torch.Tensor, mesh: Mesh) -> Sharded:
     shared by the shards that repeat it."""
     copies = {dev: x.to(dev) for dev in mesh.distinct()}
     return Sharded([copies[dev] for dev in mesh], replicated_spec(mesh), x.shape)
+
+
+# --------------------------------------------------------------------------
+# named meshes: the LM side's (pod, data, model) layouts
+# --------------------------------------------------------------------------
+class Spec(tuple):
+    """A per-dimension partition spec (the reference's ``PartitionSpec``):
+    one entry a dimension, None (whole), an axis name, or a tuple of axis
+    names (the dimension split over their product, the first name
+    outermost). A leaf of ``repro_torch.tree``'s trees, not a container."""
+
+    __tree_leaf__ = True
+
+    def __repr__(self) -> str:
+        return f"Spec{tuple.__repr__(self)}"
+
+
+def spec_axes(entry) -> tuple:
+    """The axis names of one spec entry (None: none)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class NamedMesh:
+    """A mesh with named axes, the counterpart of ``jax.make_mesh(shape,
+    axes)``: ``shape`` maps each axis name to its size (in order), and
+    ``devices`` holds one ``torch.device`` a rank, in row-major order over
+    the axes (a device may repeat: logical shards). With ``devices`` None
+    the mesh is a planning object: the sharding planner reads axis sizes
+    only, and nothing can be placed on it."""
+
+    def __init__(self, shape, axis_names, devices=None):
+        shape = tuple(int(s) for s in shape)
+        names = tuple(axis_names)
+        if len(shape) != len(names) or len(set(names)) != len(names) or \
+                any(s < 1 for s in shape):
+            raise ValueError(f"a named mesh needs one size ≥ 1 for each distinct axis name, "
+                             f"got shape {shape} and axes {names}")
+        self.axis_names = names
+        self.shape = dict(zip(names, shape))
+        self.size = math.prod(shape)
+        self.devices = None
+        if devices is not None:
+            self.devices = tuple(torch.device(d) for d in devices)
+            if len(self.devices) != self.size:
+                raise ValueError(f"a {shape} mesh takes {self.size} devices, got "
+                                 f"{len(self.devices)}")
+
+    def _key(self):
+        return (tuple(self.shape.items()), self.devices)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, NamedMesh) and self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(self._key())
+
+    def __repr__(self) -> str:
+        where = "planning" if self.devices is None else ", ".join(str(d) for d in self.devices)
+        return f"NamedMesh({self.shape}, {where})"
+
+    def axis_size(self, axis) -> int:
+        """The size of an axis, of a tuple of axes (their product), 1 for None."""
+        return math.prod(self.shape[a] for a in spec_axes(axis))
+
+    def coords(self, rank: int) -> dict:
+        """Rank → its index along each axis (row-major)."""
+        out = {}
+        for name in reversed(self.axis_names):
+            rank, out[name] = divmod(rank, self.shape[name])
+        return {name: out[name] for name in self.axis_names}
+
+    def rank(self, **coords) -> int:
+        """The rank at ``coords`` (axes left out: index 0)."""
+        r = 0
+        for name in self.axis_names:
+            r = r * self.shape[name] + coords.get(name, 0)
+        return r
+
+    def require_devices(self) -> tuple:
+        if self.devices is None:
+            raise ValueError(f"{self!r} is a planning mesh: build one with devices "
+                             "(launch.mesh.make_lm_mesh) to place tensors on it")
+        return self.devices
+
+
+def block_index(spec, mesh: NamedMesh, rank: int) -> tuple:
+    """(index, count) of rank's block along each dimension under ``spec``."""
+    c = mesh.coords(rank)
+    out = []
+    for entry in spec:
+        idx, n = 0, 1
+        for a in spec_axes(entry):
+            idx, n = idx * mesh.shape[a] + c[a], n * mesh.shape[a]
+        out.append((idx, n))
+    return tuple(out)
+
+
+def check_spec(shape, spec, mesh: NamedMesh) -> None:
+    """Raise unless ``spec`` has one entry a dimension, names axes of the
+    mesh, and splits each dimension into equal blocks."""
+    if len(spec) != len(shape):
+        raise ValueError(f"spec {spec} has {len(spec)} entries for a {len(shape)}-dim shape "
+                         f"{tuple(shape)}")
+    for dim, entry in zip(shape, spec):
+        for a in spec_axes(entry):
+            if a not in mesh.shape:
+                raise ValueError(f"spec {spec} names axis {a!r}, not one of {mesh.axis_names}")
+        if dim % mesh.axis_size(entry):
+            raise ValueError(f"dimension {dim} of {tuple(shape)} does not divide over "
+                             f"{entry} (size {mesh.axis_size(entry)})")
+
+
+def block_slices(shape, spec, mesh: NamedMesh, rank: int) -> tuple:
+    """The slices of a global array of ``shape`` that rank holds."""
+    return tuple(slice(i * (d // n), (i + 1) * (d // n))
+                 for d, (i, n) in zip(shape, block_index(spec, mesh, rank)))
+
+
+def distinct_ranks(spec, mesh: NamedMesh) -> list[int]:
+    """The first rank holding each distinct block, in rank order (ranks
+    that differ only along axes the spec does not name hold copies)."""
+    seen, out = set(), []
+    for r in range(mesh.size):
+        idx = block_index(spec, mesh, r)
+        if idx not in seen:
+            seen.add(idx)
+            out.append(r)
+    return out
+
+
+def shard_named(x: torch.Tensor, spec, mesh: NamedMesh) -> list[torch.Tensor]:
+    """x split under ``spec``: one block a rank, each its own contiguous
+    copy on its rank's device (a replicated block is copied to every rank
+    that holds it, as each device of the reference holds its own)."""
+    devs = mesh.require_devices()
+    check_spec(x.shape, spec, mesh)
+    out = []
+    for r, dev in enumerate(devs):
+        part = x[block_slices(x.shape, spec, mesh, r)]
+        out.append(torch.empty(part.shape, dtype=x.dtype, device=dev).copy_(part))
+    return out
+
+
+def gather_named(blocks, shape, spec, mesh: NamedMesh, device) -> torch.Tensor:
+    """The global array of ``shape`` on ``device`` from its blocks (one a
+    rank), each distinct block read once."""
+    first = blocks[0]
+    out = torch.empty(tuple(shape), dtype=first.dtype, device=device)
+    for r in distinct_ranks(spec, mesh):
+        out[block_slices(shape, spec, mesh, r)] = blocks[r].to(device)
+    return out

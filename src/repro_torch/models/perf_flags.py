@@ -1,6 +1,5 @@
 """Performance toggles the port's models read (the counterpart of
-``src/repro/models/perf_flags.py``; ``SCATTER_GRADS`` anchors gradients to
-a mesh's sharding and comes with the port's multi-device training).
+``src/repro/models/perf_flags.py``).
 
   FLASH_BF16           run the flash QKᵀ / PV products (and the backward's
                        dq, dk, dv products) with bf16 operands and fp32
@@ -12,13 +11,17 @@ a mesh's sharding and comes with the port's multi-device training).
                        (``layers.chunked_ce``, whose backward recomputes
                        each chunk). Default 0, the reference's.
 
-The reference's MoE flags are not here. ``MOE_GATHER_DISPATCH`` builds the
-same dispatch buffer as a row gather so that GSPMD never reduces the
-(E, C, D) buffer across devices, and ``MOE_DATA_CAP`` only moves a
-sharding anchor (``shard_act`` on the buffer's capacity axis). One
-process has no mesh for either to act on, so the port has one dispatch,
-the row writes, which the tests hold to the reference under both of its
-flag values.
+The reference's ``SCATTER_GRADS`` and MoE flags are not here. They steer
+GSPMD's collectives: ``SCATTER_GRADS`` pins each gradient to its
+parameter's sharding (a reduce-scatter instead of an all-reduce and a
+slice), ``MOE_GATHER_DISPATCH`` builds the (E, C, D) dispatch buffer as a
+row gather so that it is never reduced across devices, and
+``MOE_DATA_CAP`` moves a sharding anchor on the buffer's capacity axis.
+The port's forward and backward run as one on one device, also in the
+sharded train step, which gives each block its slice of the one gradient:
+there is no collective for them to change. The port has one MoE dispatch,
+the row writes, which the tests hold to the reference under both values
+of ``MOE_GATHER_DISPATCH``.
 """
 from __future__ import annotations
 

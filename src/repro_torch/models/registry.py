@@ -4,10 +4,26 @@ counterpart of ``src/repro/models/registry.py:24-141, 184-188``).
 ``build(cfg)`` returns a ``ModelAPI`` of plain functions;
 ``make_train_step`` the training step: ``grad_accum`` microbatches with
 fp32 gradient accumulators, the global-norm clip, the warmup-cosine
-learning rate and AdamW, all on the device. The reference's mesh anchors
-(``perf_flags.SCATTER_GRADS``, the microbatch ``shard_act``) and the
-dry-run's ``input_specs``/``abstract_*`` come with the port's
-multi-device training (ROADMAP 14b-ii).
+learning rate and AdamW, all on the device. ``input_specs`` and
+``abstract_*`` give the dry run's stand-ins as ``meta`` tensors (the
+port's ``jax.eval_shape``): shapes and dtypes, no allocation.
+
+Given a named mesh (``make_train_step(..., mesh=)``), the step trains on
+the mesh's logical shards, one process owning them all. The parameters
+and the optimizer state are laid out by ``sharding.param_specs`` and
+``opt_specs`` (``state.shard_tree``), the batch by ``batch_specs``. The
+step gathers the parameters' blocks into one compute copy and the batch's
+rows, in rank order, into the global batch, both on the mesh's first
+device, and runs the single-device loss and gradients on it
+(``grad_accum`` microbatches of the global batch, fp32 accumulators; the
+anchors of ``meshops`` check that each microbatch splits over (pod,
+data)). That is the maths of the reference's GSPMD step: one token mean
+over every labelled token of a microbatch, MoE capacity, slots and the
+aux loss over all of its tokens. Each shard's block of the gradient is its
+slice of the one gradient (the reduce-scatter), the clip adds each leaf's
+distinct blocks' squared sums in rank order, and AdamW updates every block
+on its own shard. So the mesh shards storage, the batch and the update,
+not the products.
 """
 from __future__ import annotations
 
@@ -19,7 +35,8 @@ import torch
 from .. import tree as T
 from ..configs.base import ModelConfig, ShapeCell, TrainConfig
 from ..device import resolve_device
-from ..optim import adamw_update, clip_by_global_norm, warmup_cosine
+from ..optim import adamw_init, adamw_update, clip_by_global_norm, warmup_cosine
+from ..optim.adamw import norm_and_scale
 from . import transformer as tf
 from . import whisper as wh
 
@@ -65,41 +82,49 @@ def _detached(metrics: dict) -> dict:
     return {k: v.detach() for k, v in metrics.items()}
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None):
+def _grads(api: ModelAPI, accum: int, params, leaves: list, batch: dict):
+    """(fp32 gradients of ``leaves``, the loss, the metrics) of ``batch``:
+    ``accum`` microbatches, microbatch i rows [i·B/accum, (i+1)·B/accum),
+    fp32 accumulators of the parameters' size (activations scale 1/accum)."""
+    if accum == 1:
+        loss, metrics = api.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        return [g.float() for g in grads], loss.detach(), _detached(metrics)
+    gacc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+    lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    ms = []
+    for i in range(accum):
+        b1 = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
+              for k, v in batch.items()}
+        loss, metrics = api.loss(params, b1)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        gacc = [a + g.float() for a, g in zip(gacc, grads)]
+        lsum = lsum + loss.detach()
+        ms.append(_detached(metrics))
+    metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+    return [g / accum for g in gacc], lsum / accum, metrics
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None, mesh=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the parameters and the optimizer state are updated in
     place (and returned); the metrics (``loss``, ``gnorm``, ``lr``, ``ce``,
     ``aux``) are () fp32 device tensors. Nothing is read back to the
-    host."""
+    host. With a named ``mesh`` the three are ``state.ShardedTree``s on it
+    (the module docstring) and the metrics lie on its first rank's device
+    (``device`` defaults to it)."""
+    if mesh is not None and device is None:
+        device = mesh.require_devices()[0]
     api = build(cfg, compute_dtype=getattr(torch, tcfg.compute_dtype),
                 param_dtype=getattr(torch, tcfg.param_dtype), remat=tcfg.remat, device=device)
     accum = max(tcfg.grad_accum, 1)
-
-    def _grads(params, leaves, batch):
-        if accum == 1:
-            loss, metrics = api.loss(params, batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-            return [g.float() for g in grads], loss.detach(), _detached(metrics)
-        # microbatches: activations scale 1/accum; fp32 accumulators of the
-        # parameters' size; microbatch i is rows [i·B/accum, (i+1)·B/accum)
-        gacc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
-        lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        ms = []
-        for i in range(accum):
-            b1 = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
-                  for k, v in batch.items()}
-            loss, metrics = api.loss(params, b1)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-            gacc = [a + g.float() for a, g in zip(gacc, grads)]
-            lsum = lsum + loss.detach()
-            ms.append(_detached(metrics))
-        metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
-        return [g / accum for g in gacc], lsum / accum, metrics
+    if mesh is not None:
+        return _sharded_step(api, tcfg, accum, mesh)
 
     def train_step(params, opt_state, batch):
         params.requires_grad_(True)
         leaves = T.leaves(params)
-        grads, loss, metrics = _grads(params, leaves, batch)
+        grads, loss, metrics = _grads(api, accum, params, leaves, batch)
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, like=params)
         lr = warmup_cosine(opt_state["step"], tcfg.lr, tcfg.warmup, tcfg.total_steps)
         params, opt_state = adamw_update(params, grads, opt_state, lr,
@@ -107,6 +132,62 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None):
         return params, opt_state, {"loss": loss, "gnorm": gnorm, "lr": lr, **metrics}
 
     return train_step
+
+
+def _sum_in_order(xs: list, dev) -> torch.Tensor:
+    out = xs[0].to(dev)
+    for x in xs[1:]:
+        out = out + x.to(dev)
+    return out
+
+
+def _sharded_step(api: ModelAPI, tcfg: TrainConfig, accum: int, mesh):
+    """The train step on a named mesh (the module docstring)."""
+    from ..core.sharding import block_slices, distinct_ranks, spec_axes
+    from ..state import gather_tree
+    from .meshops import use_mesh
+    from .sharding import mesh_axes
+
+    devs = mesh.require_devices()
+    dp, _ = mesh_axes(mesh)
+    dev0 = devs[0]
+
+    def sharded_train_step(params, opt_state, batch):
+        if not params.mesh == opt_state.mesh == batch.mesh == mesh:
+            raise ValueError("the parameters, the optimizer state and the batch must lie on "
+                             "the step's mesh")
+        if any(spec_axes(spec[0] if spec else None) != dp for spec in batch.spec_leaves()):
+            raise ValueError(f"the batch's rows must be split over the mesh's {dp} axes "
+                             "(models.sharding.batch_specs)")
+        specs, shapes = params.spec_leaves(), params.shapes
+        rows = batch.shapes[0][0]
+        copy = gather_tree(params, dev0)  # the parameters' all-gather: one compute copy
+        leaves = [x.requires_grad_(True) for x in T.leaves(copy)]
+        with use_mesh(mesh, rows // accum):
+            grads, loss, metrics = _grads(api, accum, copy, leaves, gather_tree(batch, dev0))
+        del copy, leaves
+        with torch.no_grad():
+            # each block its slice of the gradient (the reduce-scatter)
+            blocks = [[grads[i][block_slices(shapes[i], specs[i], mesh, r)].to(devs[r])
+                       for i in range(len(grads))] for r in range(mesh.size)]
+            del grads
+            # the clip: each leaf's distinct blocks added in rank order
+            sq = [_sum_in_order([blocks[r][i].float().square().sum()
+                                 for r in distinct_ranks(specs[i], mesh)], dev0)
+                  for i in range(len(specs))]
+            gn, scale = norm_and_scale(sq, T.stacked_groups(params.ranks[0]), tcfg.grad_clip)
+            lr0 = None
+            for r in range(mesh.size):
+                s_r = scale.to(devs[r])
+                grads_r = [(x.float() * s_r).to(x.dtype) for x in blocks[r]]
+                lr = warmup_cosine(opt_state.ranks[r]["step"], tcfg.lr, tcfg.warmup,
+                                   tcfg.total_steps)
+                lr0 = lr if lr0 is None else lr0
+                adamw_update(params.ranks[r], grads_r, opt_state.ranks[r], lr,
+                             weight_decay=tcfg.weight_decay)
+        return params, opt_state, {"loss": loss, "gnorm": gn, "lr": lr0, **metrics}
+
+    return sharded_train_step
 
 
 def make_prefill_step(cfg: ModelConfig, t_max: int, compute_dtype=torch.bfloat16,
@@ -126,6 +207,54 @@ def make_decode_step(cfg: ModelConfig, compute_dtype=torch.bfloat16, device=None
         return api.decode(params, batch, cache)
 
     return decode_step
+
+
+# ------------------------------------------------------------- input specs
+def _meta(dtype, *shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """The batch of a dry-run cell as ``meta`` tensors (shapes and dtypes,
+    no allocation)."""
+    b, t = cell.global_batch, cell.seq_len
+    i32, f32 = torch.int32, torch.float32
+    if cell.kind == "decode":
+        return {"tokens": _meta(i32, b, 1)}
+    if cfg.family == "audio":
+        batch = {"tokens": _meta(i32, b, t), "frames": _meta(f32, b, cfg.enc_ctx, cfg.d_model)}
+    elif cfg.vis_ctx:
+        batch = {"tokens": _meta(i32, b, t - cfg.vis_ctx),
+                 "vis": _meta(f32, b, cfg.vis_ctx, cfg.vis_width)}
+    else:
+        batch = {"tokens": _meta(i32, b, t)}
+    if cell.kind == "train":
+        batch["labels"] = _meta(i32, b, t) if cfg.family == "audio" else _meta(
+            i32, *batch["tokens"].shape)
+    return batch
+
+
+def abstract_params(cfg: ModelConfig, param_dtype=torch.float32):
+    """The parameters as ``meta`` tensors: ``init`` runs under fake tensors
+    (no storage), and each leaf becomes a ``meta`` tensor of its shape and
+    dtype, in the model's module."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        params = build(cfg, param_dtype=param_dtype, device="cpu",
+                       generator=torch.Generator("cpu")).init()
+    return T.unflatten_like(params, [_meta(x.dtype, *x.shape) for x in T.leaves(params)])
+
+
+def abstract_opt_state(params, master_fp32: bool = False) -> dict:
+    """AdamW's state of ``meta`` parameters (``master`` under
+    ``master_fp32``)."""
+    return adamw_init(params, master_fp32)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, t_max: int) -> dict:
+    """The decode cache as ``meta`` tensors."""
+    return build(cfg, device="meta", generator=torch.Generator("cpu")).cache_init(batch, t_max)
 
 
 def supports_cell(cfg: ModelConfig, cell: ShapeCell) -> tuple[bool, str]:

@@ -43,6 +43,7 @@ from .attention import (gqa_cache_init, gqa_decode, gqa_forward, gqa_init, mla_c
                         mla_decode, mla_forward, mla_init)
 from .layers import (chunked_ce, cross_entropy, dense_init, embed_init, layernorm,
                      layernorm_init, mlp, mlp_init, rmsnorm, rmsnorm_init, unembed)
+from .meshops import shard_logits, shard_residual
 from .moe import moe_apply, moe_init
 
 #: the attention segment kinds → their cache's tensor names
@@ -277,8 +278,8 @@ def block_decode(p, cfg, kind: str, x: torch.Tensor, cache_l: dict, length: torc
 def _logits(p, cfg, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     x = _norm(cfg, p["final_norm"], x)
     if cfg.tie_embed:
-        return unembed(x, p["embed"], compute_dtype)
-    return (x @ p["unembed"].to(compute_dtype)).float()
+        return shard_logits(unembed(x, p["embed"], compute_dtype))
+    return shard_logits((x @ p["unembed"].to(compute_dtype)).float())
 
 
 def _embed_inputs(p, cfg, batch: dict, compute_dtype):
@@ -289,6 +290,7 @@ def _embed_inputs(p, cfg, batch: dict, compute_dtype):
         vis = batch["vis"].to(compute_dtype) @ p["vis_proj"].to(compute_dtype)
         x = torch.cat([vis, x], dim=1)
     b, t, _ = x.shape
+    x = shard_residual(x)  # the anchor: the batch over (pod, data)
     mask = ("prefix", cfg.vis_ctx) if cfg.vis_ctx else ("causal", 0)
     positions = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
     return x, mask, positions
@@ -318,6 +320,7 @@ def lm_forward(p: LM, cfg, batch: dict, compute_dtype=torch.bfloat16, remat: boo
     for seg, seg_p in zip(program(cfg), p["segments"]):
         if seg.kind == "site":
             x, kv = remat_apply(_site_apply, remat, p["site"], cfg, site_idx, x, positions, mask)
+            x = shard_residual(x)
             if keep_states:
                 caches.append(kv)
             site_idx += 1
@@ -326,6 +329,7 @@ def lm_forward(p: LM, cfg, batch: dict, compute_dtype=torch.bfloat16, remat: boo
         for layer_p in seg_p:
             x, aux, state = remat_apply(block_apply, remat, layer_p, cfg, seg.kind, x,
                                         positions, mask)
+            x = shard_residual(x)
             aux_total = aux_total + aux
             states.append(state)
         if keep_states:

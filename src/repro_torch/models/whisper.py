@@ -25,6 +25,7 @@ from ..device import resolve_device
 from .attention import (cross_forward, cross_init, cross_kv, gqa_cache_init, gqa_decode,
                         gqa_forward, gqa_init)
 from .layers import cross_entropy, embed_init, layernorm, layernorm_init, mlp, mlp_init
+from .meshops import shard_logits, shard_residual
 from .transformer import Block, ParamTree, remat_apply
 
 
@@ -97,9 +98,10 @@ def encode(p: Whisper, cfg, frames: torch.Tensor, compute_dtype=torch.bfloat16,
     """frames: (B, enc_ctx, d_model) stub embeddings → the encoder output."""
     b, t, _ = frames.shape
     x = frames.to(compute_dtype) + _sinusoid(t, cfg.d_model, frames.device).to(compute_dtype)
+    x = shard_residual(x)
     positions = _positions(b, t, frames.device)
     for lp in p["enc_blocks"]:
-        x = remat_apply(_enc_layer, remat, lp, cfg, x, positions)
+        x = shard_residual(remat_apply(_enc_layer, remat, lp, cfg, x, positions))
     return layernorm(p["enc_norm"], x, cfg.norm_eps)
 
 
@@ -115,7 +117,7 @@ def _dec_layer(lp, cfg, x: torch.Tensor, positions: torch.Tensor, enc_out: torch
 
 def _logits(p: Whisper, cfg, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     x = layernorm(p["dec_norm"], x, cfg.norm_eps)
-    return (x.to(compute_dtype) @ p["embed"].to(compute_dtype).T).float()
+    return shard_logits((x.to(compute_dtype) @ p["embed"].to(compute_dtype).T).float())
 
 
 def _decoder(p: Whisper, cfg, tokens: torch.Tensor, enc_out: torch.Tensor, compute_dtype,
@@ -123,10 +125,12 @@ def _decoder(p: Whisper, cfg, tokens: torch.Tensor, enc_out: torch.Tensor, compu
     b, t = tokens.shape
     dev = tokens.device
     x = p["embed"][tokens].to(compute_dtype) + _sinusoid(t, cfg.d_model, dev).to(compute_dtype)
+    x = shard_residual(x)
     positions = _positions(b, t, dev)
     states = []
     for lp in p["dec_blocks"]:
         x, kv, ckv = remat_apply(_dec_layer, remat, lp, cfg, x, positions, enc_out)
+        x = shard_residual(x)
         if keep_states:
             states.append((*kv, *ckv))
     if last_only:

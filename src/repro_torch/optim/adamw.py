@@ -44,7 +44,15 @@ def clip_by_global_norm(grads, max_norm: float, like=None):
     order of ``like`` (the parameters), whose stacks group the sum."""
     flat = _flat(grads)
     groups = T.stacked_groups(like if like is not None else grads)
-    sq = [g.float().square().sum() for g in flat]
+    gn, scale = norm_and_scale([g.float().square().sum() for g in flat], groups, max_norm)
+    out = [(g.float() * scale).to(g.dtype) for g in flat]
+    return (out if flat is grads else T.unflatten_like(grads, out)), gn
+
+
+def norm_and_scale(sq: list, groups: list, max_norm: float):
+    """(the global norm, the clip factor) from each leaf's squared sum,
+    ``groups`` (``tree.stacked_groups``) adding a stack's layers into their
+    stacked leaf first, the leaves in the reference's flatten order."""
     total = None
     for group in groups:
         part = sq[group[0]]
@@ -52,9 +60,7 @@ def clip_by_global_norm(grads, max_norm: float, like=None):
             part = part + sq[i]
         total = part if total is None else total + part
     gn = torch.sqrt(total)
-    scale = torch.clamp(max_norm / gn.clamp_min(1e-9), max=1.0)
-    out = [(g.float() * scale).to(g.dtype) for g in flat]
-    return (out if flat is grads else T.unflatten_like(grads, out)), gn
+    return gn, torch.clamp(max_norm / gn.clamp_min(1e-9), max=1.0)
 
 
 def adamw_init(params, master_fp32: bool = False) -> dict:

@@ -13,15 +13,24 @@ The LM side has weights: :func:`lm_params_from_numpy` carries the JAX
 ``lm_init`` (or ``whisper_init``) pytree, as numpy arrays, into the port's
 ``models.LM`` (or ``models.whisper.Whisper``), and
 :func:`opt_state_from_numpy` the reference's AdamW state into the port's.
+
+On a named mesh (``core.sharding.NamedMesh``) a tree is a
+:class:`ShardedTree`: :func:`shard_tree` places a single-device tree by a
+tree of specs (``models.sharding.param_specs`` and its kin),
+:func:`gather_tree` brings it back, and :func:`sharded_map` makes a
+rank-local state (AdamW's) from the placed parameters.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
 
+from . import tree as T
 from .core.cit import DiscreteStats
+from .core.sharding import NamedMesh, gather_named, shard_named
 from .device import resolve_device
 
 _DTYPES = {"x": torch.float32, "c": torch.float32, "adj": torch.bool, "sep": torch.int32}
@@ -158,3 +167,62 @@ def _leaves(tree):
     if tree is None:
         return []
     return [x for v in tree.values() for x in _leaves(v)] if isinstance(tree, dict) else [tree]
+
+
+# --------------------------------------------------------------------------
+# trees on a named mesh
+# --------------------------------------------------------------------------
+@dataclass
+class ShardedTree:
+    """A tree placed on a named mesh: ``ranks[r]`` is the tree of rank r's
+    blocks (the placed tree's structure; a module stays a module of its
+    class, its parameters the blocks), each on rank r's device; ``specs``
+    the tree of ``Spec``s it was placed by; ``shapes`` the global shapes
+    in the flatten order. A block that several ranks hold is a copy on
+    each, as each device of the reference holds its own."""
+
+    mesh: NamedMesh
+    specs: Any
+    ranks: list
+    shapes: list
+
+    def leaves(self, rank: int) -> list:
+        return T.leaves(self.ranks[rank])
+
+    def spec_leaves(self) -> list:
+        return T.leaves(self.specs)
+
+
+def shard_tree(tree, specs, mesh: NamedMesh) -> ShardedTree:
+    """Place a single-device ``tree`` on ``mesh``: each leaf split by its
+    spec (``specs`` has the tree's structure), one copy a rank."""
+    leaves, spec_leaves = T.leaves(tree), T.leaves(specs)
+    if len(leaves) != len(spec_leaves):
+        raise ValueError(f"the tree has {len(leaves)} leaves, its specs {len(spec_leaves)}")
+    with torch.no_grad():
+        blocks = [shard_named(x.detach(), spec, mesh) for x, spec in zip(leaves, spec_leaves)]
+    ranks = [T.unflatten_like(tree, [b[r] for b in blocks]) for r in range(mesh.size)]
+    return ShardedTree(mesh, specs, ranks, [tuple(x.shape) for x in leaves])
+
+
+def gather_tree(st: ShardedTree, device=None):
+    """The single-device tree on ``device`` (None: rank 0's), each leaf
+    assembled from its distinct blocks."""
+    dev = st.mesh.require_devices()[0] if device is None else torch.device(device)
+    specs = st.spec_leaves()
+    per_rank = [st.leaves(r) for r in range(st.mesh.size)]
+    with torch.no_grad():
+        full = [gather_named([leaves[i] for leaves in per_rank], shape, specs[i], st.mesh, dev)
+                for i, shape in enumerate(st.shapes)]
+    return T.unflatten_like(st.ranks[0], full)
+
+
+def sharded_map(fn, st: ShardedTree, specs) -> ShardedTree:
+    """``fn`` on each rank's tree of blocks, for a map that acts element by
+    element (``optim.adamw_init``: zero moments, a master copy), laid out
+    by ``specs``: the result on ``st``'s mesh with no whole tensor made."""
+    ranks = [fn(t) for t in st.ranks]
+    spec_leaves = T.leaves(specs)
+    shapes = [tuple(d * st.mesh.axis_size(e) for d, e in zip(b.shape, sp))
+              for b, sp in zip(T.leaves(ranks[0]), spec_leaves)]
+    return ShardedTree(st.mesh, specs, ranks, shapes)

@@ -10,6 +10,10 @@ segment's layers into one leaf of shape (L, ...); the port holds a
 :class:`Layer`\\ s in a leaf's path, and :func:`as_tree` keeps them as a
 :class:`Layers` list, so that the optimizer decides weight decay by the
 stacked rank and sums the global norm in the reference's leaf order.
+
+A value whose class sets ``__tree_leaf__`` (``core.sharding.Spec``, a
+tuple) is a leaf, so that a tree of partition specs has its parameters'
+structure.
 """
 from __future__ import annotations
 
@@ -35,8 +39,14 @@ def _is_stack(node) -> bool:
                                         and isinstance(node[0], Block))
 
 
+def _is_leaf(node) -> bool:
+    return getattr(node, "__tree_leaf__", False)
+
+
 def _children(node):
     """[(key, child)] of a container, or None for a leaf."""
+    if _is_leaf(node):
+        return None
     if isinstance(node, (nn.ModuleList, list, tuple)):
         idx = Layer if _is_stack(node) else int
         return [(idx(i), child) for i, child in enumerate(node)]
@@ -80,8 +90,8 @@ def stacked_groups(tree) -> list[list[int]]:
 def as_tree(node):
     """Modules as plain containers (a ``ParamTree`` a dict, a stack a
     :class:`Layers`), the same leaf tensors."""
-    if node is None:
-        return None
+    if node is None or _is_leaf(node):
+        return node
     if isinstance(node, (nn.ModuleList, list, tuple)):
         out = [as_tree(child) for child in node]
         if _is_stack(node):
@@ -98,13 +108,31 @@ def tree_map(fn, tree):
     """``fn`` on every leaf; modules come back as plain containers."""
     if tree is None:
         return None
-    if isinstance(tree, (nn.Module, list, tuple, dict)):
+    if isinstance(tree, (nn.Module, list, tuple, dict)) and not _is_leaf(tree):
         tree = as_tree(tree)
         if isinstance(tree, dict):
             return {k: tree_map(fn, v) for k, v in tree.items()}
         out = [tree_map(fn, v) for v in tree]
         return type(tree)(out) if isinstance(tree, (Layers, tuple)) else out
     return fn(tree)
+
+
+def tree_map_with_path(fn, tree):
+    """``fn(path, leaf)`` on every leaf, the paths those of
+    :func:`flatten_with_path`; modules come back as plain containers."""
+
+    def go(node, path):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: go(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)) and not _is_leaf(node):
+            idx = Layer if isinstance(node, Layers) else int
+            out = [go(v, path + (idx(i),)) for i, v in enumerate(node)]
+            return type(node)(out) if isinstance(node, (Layers, tuple)) else out
+        return fn(path, node)
+
+    return go(as_tree(tree), ())
 
 
 def unflatten_like(template, new_leaves: list):
@@ -149,6 +177,8 @@ def treedef_str(tree) -> str:
 def _structure(tree) -> str:
     if tree is None:
         return "None"
+    if _is_leaf(tree):
+        return "*"
     if isinstance(tree, nn.Module):
         tree = as_tree(tree)
     if isinstance(tree, dict):
