@@ -236,8 +236,24 @@ Phases, each of which exits non-zero on failure:
    each way, and one step on each mesh. No hand kernel: the launch counts
    stay 0. The phase prints its seconds.
 
-``python3 chip_smoke.py --phase 11`` (or ``--phase 12``) runs that phase
-alone (no build, no ``kernels`` line, no ``ok`` record).
+13. The dry run and the examples (``launch.dryrun``, ``roofline``,
+   ``models.costmode``, ``examples/torch_*.py``): (a) the grouped
+   multi-tensor AdamW bitwise the per-leaf arithmetic; qwen3-1.7b at full
+   width, phase 11 (d)'s train step and phase 10's decode step, each
+   counted on ``meta`` tensors by ``dryrun.count`` and run on the card:
+   FLOPs equal to ``FlopCounterMode`` on the card's step, the measured
+   peak at most PEAK_SLACK × the predicted one, the steady step at least
+   the roofline bound (a share above 1 fails as an impossible reading);
+   (b) three production cells through ``dryrun.main`` (qwen3-1.7b
+   train_4k single, qwen2-moe-a2.7b decode_32k multi, deepseek-v2-236b
+   train_4k multi), each in its own process on the host: status, the
+   dominant term, GiB a device, ``fits``, seconds; (c) the four examples
+   at their defaults with their own checks ("E" and "S" skeletons equal,
+   the loss falling). The examples' PC runs launch the kernels (corr and
+   level0 at least); the phase prints its seconds.
+
+``python3 chip_smoke.py --phase 11`` (or ``--phase 12``, ``--phase 13``)
+runs that phase alone (no build, no ``kernels`` line, no ``ok`` record).
 
 The last two lines are a ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -984,7 +1000,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    only = {"11": lm_training, "12": lm_mesh_training}
+    only = {"11": lm_training, "12": lm_mesh_training, "13": dry_run_phase}
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in only:
         only[sys.argv[2]](torch, smi.stdout.strip())
         print(smi.stdout.strip())
@@ -1011,6 +1027,7 @@ def main() -> int:
     lm_serving(torch, card)
     lm_training(torch, card)
     lm_mesh_training(torch, card)
+    dry_run_phase(torch, card)
 
     sources = {"corr": ("src/repro_torch/csrc/corr.cu", "src/repro/kernels/corr.py:38"),
                "level0": ("src/repro_torch/csrc/level0.cu", "src/repro/kernels/level0.py:28"),
@@ -3933,6 +3950,310 @@ def ef_full_size(torch, card):
     check(err <= float(scale) and exact and same, "phase 12 (e): the compressed mean is wrong")
     del g, res, means, new, c_means, c_new
     torch.cuda.empty_cache()
+
+
+
+# --------------------------------------------------------------- phase 13
+DRY_CELLS = (("qwen3-1.7b", "train_4k", "single"), ("qwen2-moe-a2.7b", "decode_32k", "multi"),
+             ("deepseek-v2-236b", "train_4k", "multi"))  # (b)
+DRY_CELL_TIMEOUT = 600  # (b): seconds a production cell may take on the host
+PEAK_SLACK = 1.10  # (a): measured peak ≤ this × the dry run's predicted peak
+EXAMPLES = ("torch_quickstart", "torch_grn_discovery", "torch_train_lm",
+            "torch_activation_causal")  # (c)
+
+
+def dry_run_phase(torch, card):
+    """Phase 13: the dry run's counting held to the card, three production
+    cells through ``launch.dryrun`` (on the host's cores, in their own
+    processes, while the card runs (a) and (c)), and the four examples
+    (``torch_grn_discovery``, the longest, in a process of its own beside
+    the other three), with the launch counts reset just before and read
+    just after (this process's only)."""
+    import tempfile
+
+    from repro_torch.kernels import build
+
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun") as out:
+        procs = dry_cells_start(out)
+        try:
+            build.reset_launches()
+            adamw_grouped_bitwise(torch, card)
+            dry_vs_card(torch, card, "train")
+            dry_vs_card(torch, card, "decode")
+            procs.append(grn_start())
+            run_examples(torch, card, out, procs[-1])
+            got = nonzero(dict(build.LAUNCHES))
+            dry_cells_report(procs[:-1], out, card)
+        finally:
+            for _, proc, _ in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    print(f"phase 13: {time.monotonic() - t_phase:.1f} s, hand-kernel launches "
+          f"{json.dumps(got)}  [{card}]")
+    # the examples' PC runs go through the kernels; the LM paths launch none
+    check(got.get("corr", 0) > 0 and got.get("level0", 0) > 0,
+          f"phase 13: the examples' PC runs launched no corr or level0 kernel ({got})")
+    torch.cuda.empty_cache()
+
+
+def dry_cells_start(out):
+    """(b) each production cell through ``dryrun.main`` in a process of its
+    own, no card visible, its record written under ``out``."""
+    code = ("import sys; from pathlib import Path; sys.path.insert(0, sys.argv[1]); "
+            "from repro_torch.launch import dryrun as D; D.RESULTS = Path(sys.argv[2]); "
+            "sys.exit(D.main(sys.argv[3:]))")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    procs = []
+    for arch, shape, mesh in DRY_CELLS:
+        argv = [sys.executable, "-c", code, str(SRC), out, "--arch", arch, "--shape", shape,
+                "--mesh", mesh, "--force"]
+        procs.append(((arch, shape, mesh), subprocess.Popen(
+            argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env),
+            time.monotonic()))
+    return procs
+
+
+def dry_cells_report(procs, out, card):
+    """(b) each cell's status, dominant term, GiB a device, ``fits`` and
+    seconds; every cell ``ok``."""
+    for (arch, shape, mesh), proc, t0 in procs:
+        try:
+            text, _ = proc.communicate(timeout=max(1.0, DRY_CELL_TIMEOUT
+                                                    - (time.monotonic() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise PhaseError(f"phase 13 (b): {arch} {shape} {mesh} ran past "
+                             f"{DRY_CELL_TIMEOUT} s")
+        wall = time.monotonic() - t0
+        path = Path(out) / f"{arch}__{shape}__{mesh}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+        if rec["status"] != "ok":
+            print(text[-3000:])
+        check(proc.returncode == 0 and rec["status"] == "ok",
+              f"phase 13 (b): {arch} {shape} {mesh} exited {proc.returncode}, status "
+              f"{rec['status']}: {rec.get('error', '')[:300]}")
+        r, mem = rec["roofline"], rec["memory"]
+        print(f"phase 13 (b) dry run {arch} {shape} {mesh} ({rec['mesh_ranks']} ranks, sharded "
+              f"step {rec['sharded_step']}): {rec['status']}, dominant {r['dominant']} "
+              f"(compute {r['t_compute_s']:.4e} s, memory {r['t_memory_s']:.4e} s, collective "
+              f"{r['t_collective_s']:.4e} s), {mem['total_bytes_per_device'] / 2**30:.2f} GiB "
+              f"a device (arguments {mem['argument_size_in_bytes'] / 2**30:.2f}, peak temporaries "
+              f"{mem['temp_size_in_bytes'] / 2**30:.2f}), fits {rec['fits']}, counted in "
+              f"{rec['count_s']:.1f} s ({wall:.1f} s with the process, on the host)")
+
+
+def adamw_grouped_bitwise(torch, card):
+    """(a) ``optim.adamw_update`` (groups of multi-tensor ops) bitwise the
+    per-leaf arithmetic it replaced, on the card: fp32 parameters, and bf16
+    ones with an fp32 master; three steps, a device-scalar lr, groups cut
+    at 5 000 elements (four groups) and at the default (one)."""
+    import copy
+
+    from repro_torch import tree as TT
+    from repro_torch.optim import adamw as A
+
+    def per_leaf(params, grads, state, lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
+        step = state["step"] + 1
+        t = step.float()
+        bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+        masters = state.get("master")
+        named = TT.flatten_with_path(params)
+        flat_ma = TT.leaves(masters) if masters is not None else [None] * len(named)
+        for (path, p), g, m, v, ma in zip(named, grads, TT.leaves(state["m"]),
+                                          TT.leaves(state["v"]), flat_ma):
+            g32 = g.float()
+            m_new = b1 * m + (1 - b1) * g32
+            v_new = b2 * v + (1 - b2) * g32 * g32
+            wd = weight_decay if TT.stacked_ndim(path, p) >= 2 else 0.0
+            p32 = (ma if ma is not None else p).float()
+            p_new = p32 - lr * (m_new / bc1 / (torch.sqrt(v_new / bc2) + eps) + wd * p32)
+            p.copy_(p_new.to(p.dtype))
+            m.copy_(m_new)
+            v.copy_(v_new)
+            if ma is not None:
+                ma.copy_(p_new)
+        state["step"] = step
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    same, default = [], A.GROUP_ELEMENTS
+    try:
+        for dtype, master in ((torch.float32, False), (torch.bfloat16, True)):
+            for group in (5_000, default):
+                A.GROUP_ELEMENTS = group
+                shapes = ((2048, 3), (512,), (16, 128, 4), (3000, 2), (7,))
+                params = {f"w{i}": torch.nn.Parameter(
+                    torch.randn(s, generator=gen, device=dev).to(dtype))
+                    for i, s in enumerate(shapes)}
+                state = A.adamw_init(params, master)
+                params2, state2 = copy.deepcopy(params), copy.deepcopy(state)
+                with torch.no_grad():
+                    for i in range(3):
+                        grads = [torch.randn(x.shape, generator=gen, device=dev) * 0.1
+                                 for x in TT.leaves(params)]
+                        lr = torch.full((), 1e-2 * (i + 1), device=dev)
+                        A.adamw_update(params, grads, state, lr)
+                        per_leaf(params2, grads, state2, lr)
+                same.append(all(torch.equal(a, b) for a, b in zip(
+                    TT.leaves(params) + TT.leaves(state), TT.leaves(params2) + TT.leaves(state2))))
+    finally:
+        A.GROUP_ELEMENTS = default
+    print(f"phase 13 (a) grouped multi-tensor AdamW against the per-leaf arithmetic, fp32 and "
+          f"bf16 + fp32 master, groups of 5 000 and {default} elements, 3 steps: bitwise "
+          f"{same}  [{card}]")
+    check(all(same), "phase 13 (a): the grouped AdamW differs from the per-leaf update")
+
+
+def _meta_batch(torch, cfg, b, t, train):
+    batch = {"tokens": torch.empty((b, t), dtype=torch.int32, device="meta")}
+    if train:
+        batch["labels"] = torch.empty((b, t), dtype=torch.int32, device="meta")
+    return batch
+
+
+def dry_vs_card(torch, card, kind):
+    """(a) qwen3-1.7b at full width: phase 11's train step (``TrainConfig``
+    defaults: bf16 compute, fp32 parameters, remat; 8 × 128) or phase 10's
+    decode step (bf16 compute, fp32 parameters, batch 4, a cache of 48),
+    counted by ``launch.dryrun`` on ``meta`` tensors and run on the card.
+    The FLOPs equal ``FlopCounterMode`` on the card's step; the card's peak
+    (above what was allocated before its arguments) is at most
+    PEAK_SLACK × the predicted peak (the arguments and the step's peak of
+    live bytes); the steady step is at least the roofline bound."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import tree as TT
+    from repro_torch.configs import ARCHS, TrainConfig
+    from repro_torch.data.lm_tokens import TokenPipeline
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw_init
+    from repro_torch.roofline import HW
+
+    cfg = ARCHS[LM_ARCH]
+    dev = torch.device("cuda")
+    p_abs = registry.abstract_params(cfg)
+    if kind == "train":
+        n = TRAIN_SHAPE["steps"]
+        tcfg = TrainConfig(lr=1e-3, total_steps=n, warmup=max(n // 20, 5))
+        b, t = TRAIN_SHAPE["batch"], TRAIN_SHAPE["seq"]
+        meta_args = (p_abs, registry.abstract_opt_state(p_abs), _meta_batch(torch, cfg, b, t, True))
+        got = D.count(registry.make_train_step(cfg, tcfg, device="meta"), *meta_args)
+        what = f"train step, {b} × {t}"
+    else:
+        b, t_max = LM_SHAPE["batch"], LM_SHAPE["prompt_len"] + LM_SHAPE["gen"]
+        meta_args = (p_abs, _meta_batch(torch, cfg, b, 1, False),
+                     registry.abstract_cache(cfg, b, t_max))
+        got = D.count(registry.make_decode_step(cfg, device="meta"), *meta_args)
+        what = f"decode step, batch {b}, a cache of {t_max}"
+    arg_bytes = sum(D._alloc(x.numel() * x.element_size()) for a in meta_args
+                    for x in TT.leaves(a))
+    predicted = arg_bytes + got["peak_bytes"]
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    api = registry.build(cfg, device=dev)
+    params = api.init()
+    if kind == "train":
+        opt = adamw_init(params)
+        step = registry.make_train_step(cfg, tcfg, device=dev)
+        pipe = TokenPipeline(cfg.vocab, t, b, device=dev)
+        batches = [pipe.batch(i) for i in range(6)]
+        call = [lambda i: step(params, opt, batches[i])]
+    else:
+        cache = api.cache_init(b, t_max)
+        tok = {"tokens": torch.zeros((b, 1), dtype=torch.int32, device=dev)}
+        step = registry.make_decode_step(cfg, device=dev)
+        call = [lambda i: step(params, tok, cache)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        call[0](0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    secs = []
+    for i in range(1, 6):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        call[0](i)
+        secs.append(spent(torch, t0))
+    steady = sorted(secs)[len(secs) // 2]
+    flops, byts = got["cost"]["flops"], got["cost"]["bytes accessed"]
+    bound = max(flops / HW["peak_flops"], byts / HW["hbm_bw"])
+    by = "operations" if flops / HW["peak_flops"] >= byts / HW["hbm_bw"] else "bytes"
+    share = bound / steady
+    print(f"phase 13 (a) {LM_ARCH} full width, {what}: FLOPs counted on meta {flops:.6e}, "
+          f"FlopCounterMode on the card {fc.get_total_flops():.6e}; bytes accessed "
+          f"{byts:.6e}; predicted peak {predicted / 2**30:.3f} GiB (arguments "
+          f"{arg_bytes / 2**30:.3f}, step {got['peak_bytes'] / 2**30:.3f}), measured "
+          f"{peak / 2**30:.3f} GiB ({peak / predicted:.4f} of the prediction); roofline bound "
+          f"{bound * 1e3:.3f} ms ({by}), "
+          f"steady step {steady * 1e3:.3f} ms, share {share:.4f}  [{card}]")
+    check(fc.get_total_flops() == flops,
+          f"phase 13 (a) {what}: FLOPs {flops} counted, {fc.get_total_flops()} on the card")
+    check(peak <= PEAK_SLACK * predicted,
+          f"phase 13 (a) {what}: peak {peak} above {PEAK_SLACK} × the predicted {predicted}")
+    check(share <= 1.0, f"phase 13 (a) {what}: the step ran faster than its roofline bound "
+                        f"({steady} s < {bound} s): an impossible reading")
+    del params, call
+    torch.cuda.empty_cache()
+
+
+def grn_start():
+    """(c) ``examples/torch_grn_discovery.py`` at its defaults on the card,
+    in a process of its own."""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    argv = [sys.executable, str(ROOT / "examples" / "torch_grn_discovery.py")]
+    return (("torch_grn_discovery",), subprocess.Popen(
+        argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env),
+        time.monotonic())
+
+
+def run_examples(torch, card, out, grn):
+    """(c) the four examples on the card at their defaults (the training
+    example's checkpoints under ``out``; ``grn`` the discovery example's
+    process), each with its own checks: the E and S skeletons equal, the
+    loss falling."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    names = [name for name in EXAMPLES if name != "torch_grn_discovery"]
+    mods = {name: __import__(name) for name in names}
+    argv = {"torch_train_lm": ["--ckpt", str(Path(out) / "train_lm_ckpt")]}
+    res = {}
+    for name in names:
+        t0 = time.monotonic()
+        try:
+            res[name] = mods[name].main(argv.get(name, []))
+        except SystemExit as e:
+            raise PhaseError(f"phase 13 (c) {name}: {e}") from None
+        print(f"phase 13 (c) {name}: {spent(torch, t0):.1f} s  [{card}]")
+    _, proc, t0 = grn
+    try:
+        text, _ = proc.communicate(timeout=DRY_CELL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise PhaseError(f"phase 13 (c): torch_grn_discovery ran past {DRY_CELL_TIMEOUT} s")
+    lines = [ln for ln in text.splitlines() if ln.startswith(("[", "    edges"))]
+    print("\n".join(lines))
+    same = "[grn] cuPC-E and cuPC-S skeletons identical" in text
+    print(f"phase 13 (c) torch_grn_discovery (its own process): exit {proc.returncode}, "
+          f"{time.monotonic() - t0:.1f} s with the process  [{card}]")
+    qs, tl, ac = res["torch_quickstart"], res["torch_train_lm"], res["torch_activation_causal"]
+    print(f"phase 13 (c) quickstart: mean edge frequency {qs['freq_true']:.3f} on true edges, "
+          f"{qs['freq_false']:.4f} elsewhere; grn: E and S skeletons equal {same}; train_lm loss "
+          f"{tl['losses'][0]:.4f} -> {tl['losses'][-1]:.4f} in {len(tl['losses'])} steps; "
+          f"activation_causal {ac['edges']}/{ac['total']} unit edges, loss "
+          f"{ac['losses'][-1]:.4f}  [{card}]")
+    check(qs["freq_true"] > qs["freq_false"], "phase 13 (c): the ensemble's true edges recur "
+                                              "less than the others")
+    check(proc.returncode == 0 and same, f"phase 13 (c): torch_grn_discovery failed: "
+                                         f"{text[-500:]}")
+    check(tl["losses"][-1] < tl["losses"][0], "phase 13 (c): train_lm's loss did not fall")
+    check(all(math.isfinite(x) for x in ac["losses"]) and 0 < ac["edges"] <= ac["total"],
+          "phase 13 (c): activation_causal's run is not sane")
 
 
 if __name__ == "__main__":

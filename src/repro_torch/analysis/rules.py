@@ -132,7 +132,8 @@ HOT: frozenset[str] = frozenset(
     + ["models/transformer.py::remat_apply", "models/transformer.py::lm_loss"]
     + [f"models/registry.py::{f}" for f in ("_detached", "_grads", "train_step")]
     + [f"optim/adamw.py::{f}" for f in (
-        "warmup_cosine", "_flat", "clip_by_global_norm", "adamw_update")]
+        "warmup_cosine", "_flat", "clip_by_global_norm", "adamw_update", "_groups",
+        "_update_group")]
     # training on a named mesh: the sharded step, the anchors, the compressed
     # mean, the pipeline's ticks and the re-meshing
     + [f"models/registry.py::{f}" for f in ("sharded_train_step", "_sum_in_order")]
@@ -144,7 +145,7 @@ HOT: frozenset[str] = frozenset(
        "tree.py::tree_map", "tree.py::as_tree"]
     + [f"core/sharding.py::{f}" for f in (
         "gather_named", "shard_named", "block_slices", "block_index", "distinct_ranks",
-        "spec_axes", "check_spec")]
+        "_distinct_ranks", "spec_axes", "check_spec", "move", "on_rank", "current_rank")]
     + [f"distributed/pipeline.py::{f}" for f in ("pipeline_apply", "_stage_device")]
     + ["distributed/elastic.py::_host", "distributed/elastic.py::_regroup"]
 )

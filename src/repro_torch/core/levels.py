@@ -140,37 +140,51 @@ def _jtable(n_max: int, dtype: torch.dtype, device: torch.device) -> torch.Tenso
 
 
 def _unrank_dyn(t, n_dyn, n_max: int, ell: int, table):
-    """t-th lexicographic ℓ-subset of {0..n_dyn-1}, walking candidates
+    """t-th lexicographic ℓ-subset of {0..n_dyn-1} over candidates
     k = 0..n_max-1. t and n_dyn broadcast; returns (..., ℓ) int32 positions.
     Ranks t ≥ C(n_dyn, ℓ) give junk the callers mask.
 
-    At ℓ = 1 the walk ends where it starts: every candidate counts one set,
-    so rank t takes position t while t < n_dyn and the walk leaves 0
-    otherwise; that closed form replaces n_max rounds of small launches."""
+    The reference walks the candidates (``unrank.cuh`` still does, in
+    sgrid and skernel): at k, with c of ℓ taken, it takes k if the rank
+    left is below C(n_dyn − k − 1, ℓ − c − 1), the sets that start so,
+    and else subtracts that count. Here each slot is one round over every
+    k at once: the first k after the previous pick whose running count
+    (int64 sums of the clipped table, the walk's subtractions exactly)
+    exceeds the rank left. ℓ rounds of a few ops, not n_max rounds, and
+    the walk's result for every rank: a slot the walk never fills stays 0.
+    At ℓ = 1 every candidate counts one set, so rank t takes position t
+    while t < n_dyn and the walk leaves 0 otherwise."""
     dev = table.device
-    t = t.to(table.dtype)
-    n_dyn = torch.as_tensor(n_dyn, dtype=torch.int32, device=dev)
-    shape = torch.broadcast_shapes(t.shape, n_dyn.shape)
     if ell == 1:
+        t = t.to(table.dtype)
+        n_dyn = torch.as_tensor(n_dyn, dtype=torch.int32, device=dev)
+        shape = torch.broadcast_shapes(t.shape, n_dyn.shape)
         first = torch.where((t < n_dyn) & (t < n_max), t, 0)
         return first.to(torch.int32).expand(shape)[..., None].clone()
-    rem = t.expand(shape).clone()
-    n_dyn = n_dyn.expand(shape)
-    c = torch.zeros(shape, dtype=torch.int32, device=dev)
-    out = torch.zeros(shape + (ell,), dtype=torch.int32, device=dev)
-    slots = torch.arange(ell, dtype=torch.int32, device=dev)
+    t = t.to(torch.int64)
+    n_dyn = torch.as_tensor(n_dyn, dtype=torch.int64, device=dev)
+    shape = torch.broadcast_shapes(t.shape, n_dyn.shape)
+    rem = t.expand(shape)
+    nd = n_dyn.expand(shape)[..., None]
+    ks = torch.arange(n_max, dtype=torch.int64, device=dev)
+    tail = torch.clamp(nd - ks - 1, 0, n_max)  # (..., n_max)
+    flat = table.to(torch.int64).reshape(-1)
     width = table.shape[1]
-    flat = table.reshape(-1)
-    for k in range(n_max):
-        tail = torch.clamp(n_dyn - k - 1, 0, n_max)
-        slot = torch.clamp(ell - c - 1, 0, ell + 1)
-        cnt = flat[(tail * width + slot).long()]
-        open_ = (n_dyn > k) & (c < ell)
-        take = open_ & (rem < cnt)
-        out = torch.where(take[..., None] & (slots == c[..., None]), k, out)
-        rem = torch.where(open_ & ~take, rem - cnt, rem)
-        c = c + take.to(torch.int32)
-    return out
+    start = torch.zeros(shape + (1,), dtype=torch.int64, device=dev)
+    alive = torch.ones(shape, dtype=torch.bool, device=dev)
+    out = []
+    for c in range(ell):
+        cnt = flat[tail * width + (ell - c - 1)]
+        cnt = torch.where((ks >= start) & (ks < nd), cnt, 0)
+        cum = torch.cumsum(cnt, -1)
+        hit = rem[..., None] < cum
+        alive = alive & hit.any(-1)
+        k = torch.argmax(hit.to(torch.uint8), -1, keepdim=True)  # the first hit
+        below = torch.where(k > 0, torch.gather(cum, -1, (k - 1).clamp(min=0)), 0)
+        out.append(torch.where(alive, k[..., 0], 0))
+        rem = rem - below[..., 0]
+        start = k + 1
+    return torch.stack(out, -1).to(torch.int32)
 
 
 # ------------------------------------------------------------- cuPC-S gathers

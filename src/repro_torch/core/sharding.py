@@ -25,10 +25,14 @@ The LM side's meshes have named axes, as ``jax.make_mesh((2, 2, 2),
 :class:`Spec` a tensor (the reference's ``PartitionSpec``) saying which
 axes split each dimension. :func:`shard_named` and :func:`gather_named`
 place a tensor on such a mesh and back; ``state.shard_tree`` does it for a
-tree.
+tree. A tensor crosses between the ranks of a named mesh only through
+:func:`move`, which :func:`count_seams` records by rank; :func:`on_rank`
+marks one rank's work for a counter.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from dataclasses import dataclass
 
@@ -327,13 +331,18 @@ def block_slices(shape, spec, mesh: NamedMesh, rank: int) -> tuple:
 def distinct_ranks(spec, mesh: NamedMesh) -> list[int]:
     """The first rank holding each distinct block, in rank order (ranks
     that differ only along axes the spec does not name hold copies)."""
+    return list(_distinct_ranks(Spec(spec), mesh))
+
+
+@functools.lru_cache(maxsize=4096)
+def _distinct_ranks(spec, mesh: NamedMesh) -> tuple:
     seen, out = set(), []
     for r in range(mesh.size):
         idx = block_index(spec, mesh, r)
         if idx not in seen:
             seen.add(idx)
             out.append(r)
-    return out
+    return tuple(out)
 
 
 def shard_named(x: torch.Tensor, spec, mesh: NamedMesh) -> list[torch.Tensor]:
@@ -349,11 +358,68 @@ def shard_named(x: torch.Tensor, spec, mesh: NamedMesh) -> list[torch.Tensor]:
     return out
 
 
-def gather_named(blocks, shape, spec, mesh: NamedMesh, device) -> torch.Tensor:
-    """The global array of ``shape`` on ``device`` from its blocks (one a
-    rank), each distinct block read once."""
+def gather_named(blocks, shape, spec, mesh: NamedMesh, device, dst: int = 0,
+                 kind: str = "all-gather") -> torch.Tensor:
+    """The global array of ``shape`` on ``device``, rank ``dst``'s, from its
+    blocks (one a rank), each distinct block read once (a :func:`move`
+    of ``kind`` from each other rank)."""
     first = blocks[0]
     out = torch.empty(tuple(shape), dtype=first.dtype, device=device)
     for r in distinct_ranks(spec, mesh):
-        out[block_slices(shape, spec, mesh, r)] = blocks[r].to(device)
+        out[block_slices(shape, spec, mesh, r)] = move(blocks[r], device, r, dst, kind)
     return out
+
+
+# --------------------------------------------------------------------------
+# seams: where a tensor crosses between the ranks of a named mesh
+# --------------------------------------------------------------------------
+#: the kinds of crossing, the reference's collective names
+SEAM_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+
+_SEAMS: list = []  # the active count_seams records, innermost last
+_RANKS: list = []  # the on_rank scopes, innermost last
+
+
+def move(x: torch.Tensor, device, src: int, dst: int, kind: str) -> torch.Tensor:
+    """``x``, rank ``src``'s, as rank ``dst``'s on ``device``: the one place
+    a tensor crosses between ranks. Each active :func:`count_seams` record
+    counts it under ``kind`` when the ranks differ, whatever the devices
+    (logical shards of one card or of the CPU count what separate cards
+    would move)."""
+    if _SEAMS and src != dst:
+        nbytes = x.numel() * x.element_size()
+        for rec in _SEAMS:
+            rec[kind]["count"] += 1
+            rec[kind]["bytes"] += nbytes
+    return x.to(device)
+
+
+@contextlib.contextmanager
+def count_seams():
+    """Yields ``{kind: {"count", "bytes"}, "total_bytes"}`` (the shape of
+    ``roofline.collective_bytes``), filled by the :func:`move` calls inside;
+    ``total_bytes`` is set on exit."""
+    rec = {k: {"count": 0, "bytes": 0} for k in SEAM_KINDS}
+    _SEAMS.append(rec)
+    try:
+        yield rec
+    finally:
+        _SEAMS.remove(rec)
+        rec["total_bytes"] = sum(rec[k]["bytes"] for k in SEAM_KINDS)
+
+
+@contextlib.contextmanager
+def on_rank(rank: int):
+    """Marks the work inside as rank ``rank``'s: one process drives every
+    rank of a mesh, and a counter (``launch.dryrun``) reads
+    :func:`current_rank` to tell one rank's work from another's."""
+    _RANKS.append(rank)
+    try:
+        yield
+    finally:
+        _RANKS.pop()
+
+
+def current_rank() -> int | None:
+    """The rank of the innermost :func:`on_rank`, None outside any."""
+    return _RANKS[-1] if _RANKS else None

@@ -18,6 +18,13 @@ class GaussianDAG:
     weights: np.ndarray  # (n, n) lower-triangular, W[i, j]: Vj → Vi
     adj: np.ndarray  # adj[i, j] True iff Vj → Vi
 
+    @property
+    def n(self) -> int:
+        return self.adj.shape[0]
+
+    def skeleton(self) -> np.ndarray:
+        return self.adj | self.adj.T
+
     def parents(self, i: int) -> np.ndarray:
         return np.flatnonzero(self.adj[i])
 

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import perf_flags
+from . import costmode, perf_flags
 
 NEG = -1e30
 
@@ -147,7 +147,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
                     kind: str = "causal", prefix: int = 0, block_k: int = 512
                     ) -> torch.Tensor:
     """q: (B, Tq, KV, G, dh); k: (B, Tk, KV, dh); v: (B, Tk, KV, dv)
-    → (B, Tq, KV, G, dv) in q's dtype; differentiable in q, k and v."""
+    → (B, Tq, KV, G, dv) in q's dtype; differentiable in q, k and v. In cost
+    mode the key block widens (``costmode.flash_block``)."""
+    block_k = costmode.flash_block(block_k, k.shape[1])
     return _Flash.apply(q, k, v, scale, kind, prefix, block_k)
 
 

@@ -57,7 +57,7 @@ def build(cfg: ModelConfig, compute_dtype=torch.bfloat16, param_dtype=torch.floa
     """The model's functions on ``device`` (None: the CUDA card). ``init``
     draws from ``generator`` (None: a generator on the device seeded 0)."""
     dev = resolve_device(device)
-    gen = generator or torch.Generator(dev).manual_seed(0)
+    gen = generator or torch.Generator("cpu" if dev.type == "meta" else dev).manual_seed(0)
     if cfg.family == "audio":
         return ModelAPI(
             cfg=cfg,
@@ -134,16 +134,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None, mesh=None)
     return train_step
 
 
-def _sum_in_order(xs: list, dev) -> torch.Tensor:
-    out = xs[0].to(dev)
+def _sum_in_order(xs: list) -> torch.Tensor:
+    out = xs[0]
     for x in xs[1:]:
-        out = out + x.to(dev)
+        out = out + x
     return out
 
 
 def _sharded_step(api: ModelAPI, tcfg: TrainConfig, accum: int, mesh):
     """The train step on a named mesh (the module docstring)."""
-    from ..core.sharding import block_slices, distinct_ranks, spec_axes
+    from ..core.sharding import block_slices, distinct_ranks, move, on_rank, spec_axes
     from ..state import gather_tree
     from .meshops import use_mesh
     from .sharding import mesh_axes
@@ -168,23 +168,32 @@ def _sharded_step(api: ModelAPI, tcfg: TrainConfig, accum: int, mesh):
         del copy, leaves
         with torch.no_grad():
             # each block its slice of the gradient (the reduce-scatter)
-            blocks = [[grads[i][block_slices(shapes[i], specs[i], mesh, r)].to(devs[r])
-                       for i in range(len(grads))] for r in range(mesh.size)]
+            blocks = [[move(grads[i][block_slices(shapes[i], specs[i], mesh, r)], devs[r], 0, r,
+                            "reduce-scatter") for i in range(len(grads))]
+                      for r in range(mesh.size)]
             del grads
-            # the clip: each leaf's distinct blocks added in rank order
-            sq = [_sum_in_order([blocks[r][i].float().square().sum()
-                                 for r in distinct_ranks(specs[i], mesh)], dev0)
-                  for i in range(len(specs))]
+            # the clip: each rank squares and sums its distinct blocks, and
+            # rank 0 adds each leaf's sums in rank order
+            owners = [distinct_ranks(spec, mesh) for spec in specs]
+            sums = {}
+            for r in range(mesh.size):
+                with on_rank(r):
+                    for i, own in enumerate(owners):
+                        if r in own:
+                            sums[r, i] = blocks[r][i].float().square().sum()
+            sq = [_sum_in_order([move(sums[r, i], dev0, r, 0, "all-reduce") for r in own])
+                  for i, own in enumerate(owners)]
             gn, scale = norm_and_scale(sq, T.stacked_groups(params.ranks[0]), tcfg.grad_clip)
             lr0 = None
             for r in range(mesh.size):
-                s_r = scale.to(devs[r])
-                grads_r = [(x.float() * s_r).to(x.dtype) for x in blocks[r]]
-                lr = warmup_cosine(opt_state.ranks[r]["step"], tcfg.lr, tcfg.warmup,
-                                   tcfg.total_steps)
-                lr0 = lr if lr0 is None else lr0
-                adamw_update(params.ranks[r], grads_r, opt_state.ranks[r], lr,
-                             weight_decay=tcfg.weight_decay)
+                with on_rank(r):
+                    s_r = move(scale, devs[r], 0, r, "all-reduce")
+                    grads_r = list(torch._foreach_mul(blocks[r], s_r))  # fp32 blocks
+                    lr = warmup_cosine(opt_state.ranks[r]["step"], tcfg.lr, tcfg.warmup,
+                                       tcfg.total_steps)
+                    lr0 = lr if lr0 is None else lr0
+                    adamw_update(params.ranks[r], grads_r, opt_state.ranks[r], lr,
+                                 weight_decay=tcfg.weight_decay)
         return params, opt_state, {"loss": loss, "gnorm": gn, "lr": lr0, **metrics}
 
     return sharded_train_step

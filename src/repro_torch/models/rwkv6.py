@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from . import costmode
 from .layers import dense_init
 
 DDLORA = 32  # data-dependent lerp lora rank (5 mixes)
@@ -133,7 +134,7 @@ def rwkv6_mix_chunked(p, cfg, x: torch.Tensor, state: torch.Tensor | None = None
     (no state write) and log w = 0 (no decay)."""
     d, dh, nh = _dims(cfg)
     b, t, _ = x.shape
-    q = min(cfg.ssm.chunk, t)
+    q = costmode.chunk_size(min(cfg.ssm.chunk, t), t)
     tp = -(-t // q) * q
     dt_ = x.dtype
 

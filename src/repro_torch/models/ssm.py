@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from . import costmode
 from .attention import _promote
 from .layers import dense_init, rmsnorm, rmsnorm_init
 
@@ -103,7 +104,7 @@ def mamba2_forward(p, cfg, x: torch.Tensor, state: torch.Tensor | None = None):
     hand the prefill off to decode."""
     s, d_in, nh, conv_dim = _dims(cfg)
     b, t, _ = x.shape
-    q = min(s.chunk, t)
+    q = costmode.chunk_size(min(s.chunk, t), t)
     tp = -(-t // q) * q
     dt_ = x.dtype
 

@@ -78,12 +78,32 @@ def adamw_init(params, master_fp32: bool = False) -> dict:
     return state
 
 
+#: the most elements one multi-tensor group of the update holds (fp32: 512
+#: MiB a temporary); a larger leaf is a group of its own
+GROUP_ELEMENTS = 1 << 27
+
+
+def _groups(sizes: list, limit: int) -> list[list[int]]:
+    out, cur, n = [], [], 0
+    for i, size in enumerate(sizes):
+        if cur and n + size > limit:
+            out.append(cur)
+            cur, n = [], 0
+        cur.append(i)
+        n += size
+    return out + [cur] if cur else out
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state: dict, lr, *, b1: float = 0.9, b2: float = 0.95,
                  eps: float = 1e-8, weight_decay: float = 0.1):
     """Returns (params, state), both updated in place; ``lr`` may be a
     device scalar. ``grads``: a tree of the parameters' flatten order, or
-    its leaves as a list."""
+    its leaves as a list. The leaves go in groups of at most
+    ``GROUP_ELEMENTS``, each step of the update one multi-tensor
+    (``torch._foreach_*``) op over a group: the same elementwise arithmetic,
+    in the same order, as one op a leaf, with at most three temporaries of
+    a group's size alive."""
     step = state["step"] + 1
     t = step.float()
     bc1 = 1 - b1 ** t
@@ -95,20 +115,45 @@ def adamw_update(params, grads, state: dict, lr, *, b1: float = 0.9, b2: float =
     flat_ma = T.leaves(masters) if masters is not None else [None] * len(named)
     if not len(named) == len(flat_g) == len(flat_m) == len(flat_v) == len(flat_ma):
         raise ValueError("params, grads and the optimizer state differ in their leaves")
-    for (path, p), g, m, v, master in zip(named, flat_g, flat_m, flat_v, flat_ma):
-        g32 = g.float()
-        m_new = b1 * m + (1 - b1) * g32
-        v_new = b2 * v + (1 - b2) * g32 * g32
-        mhat = m_new / bc1
-        vhat = v_new / bc2
-        # decoupled weight decay on matrices only (stacked ndim >= 2), not norms/bias
-        wd = weight_decay if T.stacked_ndim(path, p) >= 2 else 0.0
-        p32 = (master if master is not None else p).float()
-        p_new = p32 - lr * (mhat / (torch.sqrt(vhat) + eps) + wd * p32)
-        p.copy_(p_new.to(p.dtype))
-        m.copy_(m_new)
-        v.copy_(v_new)
-        if master is not None:
-            master.copy_(p_new)
+    # decoupled weight decay on matrices only (stacked ndim >= 2), not norms/bias
+    wd = [weight_decay if T.stacked_ndim(path, p) >= 2 else 0.0 for path, p in named]
+    ps = [p for _, p in named]
+    for idx in _groups([p.numel() for p in ps], GROUP_ELEMENTS):
+        def pick(xs):
+            return [xs[i] for i in idx]
+
+        _update_group(pick(ps), pick(flat_g), pick(flat_m), pick(flat_v), pick(flat_ma),
+                      pick(wd), lr, bc1, bc2, b1, b2, eps)
     state["step"] = step
     return params, state
+
+
+def _update_group(ps, gs, ms, vs, mas, wds, lr, bc1, bc2, b1, b2, eps):
+    f = torch
+    g32 = [g.float() for g in gs]
+    tmp = f._foreach_mul(g32, 1 - b1)
+    f._foreach_mul_(ms, b1)
+    f._foreach_add_(ms, tmp)                      # m ← b1·m + (1 − b1)·g
+    tmp = f._foreach_mul(g32, 1 - b2)
+    f._foreach_mul_(tmp, g32)
+    f._foreach_mul_(vs, b2)
+    f._foreach_add_(vs, tmp)                      # v ← b2·v + (1 − b2)·g·g
+    del tmp, g32
+    upd = f._foreach_div(ms, bc1)                 # m̂
+    den = f._foreach_div(vs, bc2)                 # v̂
+    f._foreach_sqrt_(den)
+    f._foreach_add_(den, eps)
+    f._foreach_div_(upd, den)                     # m̂ / (√v̂ + eps)
+    del den
+    held = [ma if ma is not None else p for p, ma in zip(ps, mas)]
+    p32 = [x.float() for x in held]
+    f._foreach_add_(upd, f._foreach_mul(p32, wds))
+    f._foreach_mul_(upd, lr)                      # lr · (m̂ / (√v̂ + eps) + wd·p)
+    if all(a is b for a, b in zip(p32, held)):    # the fp32 truth, updated in place
+        f._foreach_sub_(p32, upd)
+        p_new = p32
+    else:
+        p_new = f._foreach_sub(p32, upd)
+        f._foreach_copy_(held, p_new)
+    if mas[0] is not None:
+        f._foreach_copy_(ps, p_new)
