@@ -221,9 +221,16 @@ Phases, each of which exits non-zero on failure:
    architectures' ``meta`` parameters and AdamW state, every split
    dimension dividing, and the per-shard bytes of qwen3-1.7b and
    deepseek-v2-236b; (b) qwen3-1.7b uncut on (data 2, model 2), four
-   logical shards, phase 11 (d)'s settings for 4 steps at 8 × 128: step
-   seconds, tokens/s, peak memory, the loss falling, the run again bitwise
-   the first, one step traced; (c) the sharded step against the
+   logical shards, each rank computing its share (``models/spmd.py``:
+   FSDP over data, tensor-parallel products over model, a
+   vocabulary-parallel loss), phase 11 (d)'s settings for 4 steps at
+   8 × 128: step seconds, tokens/s, peak memory (below the gathered
+   step's 33.30 GiB on this cell), no rank holding a whole block of a leaf split over
+   model, the loss falling, the run again bitwise the first, one step's
+   crossings at rank 0 by kind (model all-reduces and data all-gathers
+   among them) and its ops under a dispatch recorder (each rank's
+   products at 1/model of the split widths, on its own rows; no whole
+   split leaf, whole-vocabulary tensor or global batch), one step traced; (c) the sharded step against the
    single-card step, fp32, qwen3 at full width cut to 2 layers, 4 × 64
    with fewer labelled tokens in one data rank's rows, 2 steps,
    ``grad_accum`` 1 and 2, to
@@ -232,8 +239,9 @@ Phases, each of which exits non-zero on failure:
    2 × 128 hidden states, forward and gradient against the sequential
    stack in fp32; (e) ``ef_compressed_mean`` over 4 pods on qwen3's full
    ``embed`` leaf: the error within the scale, the residual exact, bitwise
-   the CPU run; (f) (b)'s state re-meshed 4 → 2 → 4 logical shards, bitwise
-   each way, and one step on each mesh. No hand kernel: the launch counts
+   the CPU run; (f) (b)'s state, and qwen3 cut to 2 layers after one step,
+   re-meshed 4 → 2 → 4 logical shards, bitwise each way, and one fp32 step
+   on each mesh to a gradient-aware bound, the worst elements' |g| printed. No hand kernel: the launch counts
    stay 0. The phase prints its seconds.
 
 13. The dry run and the examples (``launch.dryrun``, ``roofline``,
@@ -244,10 +252,14 @@ Phases, each of which exits non-zero on failure:
    FLOPs equal to ``FlopCounterMode`` on the card's step, the measured
    peak at most PEAK_SLACK × the predicted one, the steady step at least
    the roofline bound (a share above 1 fails as an impossible reading);
+   and phase 12 (b)'s split step on the four logical shards, counted with
+   every rank on the one device: the same three checks against the
+   device's predicted peak;
    (b) three production cells through ``dryrun.main`` (qwen3-1.7b
    train_4k single, qwen2-moe-a2.7b decode_32k multi, deepseek-v2-236b
    train_4k multi), each in its own process on the host: status, the
-   dominant term, GiB a device, ``fits``, seconds; (c) the four examples
+   dominant term, GiB a device, ``fits``, seconds; qwen3's train cell must
+   fit, under 16 GiB a device; (c) the four examples
    at their defaults with their own checks ("E" and "S" skeletons equal,
    the loss falling). The examples' PC runs launch the kernels (corr and
    level0 at least); the phase prints its seconds.
@@ -3477,6 +3489,7 @@ def flash_backward_shapes(torch, card):
 MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")  # (b), (c), (f): 4 logical shards
 MESH_SMALL = (2, 1)  # (f): the re-mesh target, 2 logical shards (data 2, model 1)
 MESH_STEPS = 4  # (b)
+MESH_PEAK_GATHERED = 33.30  # (b): GiB, the gathered step's peak on this cell (H100, 700 W)
 PIPE = dict(stages=4, micro=4, rows=2, seq=128)  # (d): 28 blocks, 7 a stage
 EF_PODS = 4  # (e)
 EF_SCALES = (1e-3, 1e-2, 1e-4, 3e-3)  # (e): each pod's gradient scale
@@ -3489,10 +3502,15 @@ EF_SCALES = (1e-3, 1e-2, 1e-4, 3e-3)  # (e): each pod's gradient scale
 # δ_1 + 0.1 c_2 δ_2; a parameter to TRAIN_TOL["param"] · max(1, max |p|) +
 # Σ_k lr_k · min(2, 2 c_k δ_k / (c_k |g_k| + eps)) (what δ moves Adam's
 # update, a step each). (f): the 2-shard step against the 4-shard step from
-# one state: both compute the one gradient of the whole batch, so only the
-# clip's sum over blocks differs, which Adam's scale-free update carries in proportion: the
-# metrics to TRAIN_TOL["loss"] relative, a parameter to TRAIN_TOL["param"] ·
-# max(1, max |p|).
+# one state, fp32 compute (TF32 off): the two differ only in the order of
+# their sums (the split products', the all-reduces', the clip's over
+# blocks), so their gradients differ by at most (c)'s δ, with g the single
+# card's fp32 gradient of that state and c its clip factor. Adam's moments
+# are the same bits on both meshes (re-meshed), so only g moves the update:
+# the metrics to TRAIN_TOL["loss"] relative, a parameter to
+# TRAIN_TOL["param"] · max(1, max |p|) + lr · min(2, 2 c δ / (c |g| + eps)),
+# (c)'s bound for one step. It runs from two states: (b)'s, and qwen3 at
+# full width cut to LM_DEPTH layers after one step of (b)'s settings.
 # (d): the pipeline against the sequential stack, fp32 (TF32 off): the
 # outputs to PIPE_TOL["fwd"] · max(1, max |y|); a gradient leaf to
 # PIPE_TOL["grad"] · max |leaf| + PIPE_TOL["grad_floor"] · max |grad| over
@@ -3513,6 +3531,7 @@ def lm_mesh_training(torch, card):
     mesh = make_lm_mesh(MESH_SHAPE, MESH_AXES, devices=("cuda:0",) * math.prod(MESH_SHAPE))
     mesh_train_full_width(torch, card, mesh)
     mesh_vs_single(torch, card, mesh)
+    remesh_cut_state(torch, card, mesh)
     pipeline_full_width(torch, card)
     ef_full_size(torch, card)
     got = nonzero(dict(build.LAUNCHES))
@@ -3597,12 +3616,14 @@ def mesh_train_full_width(torch, card, mesh):
     (f), on this run's state. Then the run again, bitwise the first (every
     block, every loss), and one step traced."""
     from repro_torch.configs import ARCHS, TrainConfig
+    from repro_torch.core.sharding import count_seams
     from repro_torch.data.lm_tokens import TokenPipeline
-    from repro_torch.models import registry
+    from repro_torch.models import registry, spmd
     from repro_torch.models import sharding as SH
     from repro_torch.state import gather_tree, shard_tree
 
     cfg = ARCHS[LM_ARCH]
+    check(spmd.splits(cfg), f"phase 12 (b): {LM_ARCH}'s step on a mesh does not split")
     dev = torch.device("cuda")
     n = MESH_STEPS
     tcfg = TrainConfig(lr=1e-3, total_steps=n, warmup=max(n // 20, 5))
@@ -3633,11 +3654,20 @@ def mesh_train_full_width(torch, card, mesh):
         api = registry.build(cfg, device=dev)
         held = [float(api.loss(whole, x)[0]) for x in raw]
         del whole
-    print(f"phase 12 (b) {LM_ARCH} uncut on {mesh!r} (the model axis shards storage and the "
-          f"update), TrainConfig defaults (lr {tcfg.lr}, warmup {tcfg.warmup} of "
-          f"{tcfg.total_steps} steps), batch {b} × {t}: step seconds "
-          f"{', '.join(f'{x:.3f}' for x in secs)}; median steady step {steady * 1e3:.1f} ms, "
-          f"{b * t / steady:.0f} tokens/s; peak memory {peak:.2f} GiB  [{card}]")
+    print(f"phase 12 (b) {LM_ARCH} uncut on {mesh!r} (each rank computes its share: FSDP "
+          f"over data, tensor-parallel products over model), TrainConfig defaults (lr "
+          f"{tcfg.lr}, warmup {tcfg.warmup} of {tcfg.total_steps} steps), batch {b} × {t}: "
+          f"step seconds {', '.join(f'{x:.3f}' for x in secs)}; median steady step "
+          f"{steady * 1e3:.1f} ms, {b * t / steady:.0f} tokens/s; peak memory {peak:.2f} GiB "
+          f"(the gathered step's: {MESH_PEAK_GATHERED} GiB)  [{card}]")
+    whole = [(i, shape) for i, (shape, spec) in enumerate(zip(sp.shapes, sp.spec_leaves()))
+             if "model" in spec for r in range(mesh.size)
+             if tuple(sp.leaves(r)[i].shape) == tuple(shape)]
+    print(f"phase 12 (b) stored blocks of the {sum('model' in sp_ for sp_ in sp.spec_leaves())} "
+          f"leaves split over model that a rank holds whole: {len(whole)}  [{card}]")
+    check(not whole, f"phase 12 (b): ranks hold whole split parameters {whole[:4]}")
+    check(peak < MESH_PEAK_GATHERED,
+          f"phase 12 (b): peak {peak:.2f} GiB not below the gathered step's {MESH_PEAK_GATHERED}")
     print(f"phase 12 (b) losses {', '.join(f'{x:.4f}' for x in losses)}; gradient norms "
           f"{', '.join(f'{x:.3f}' for x in gnorms)}; each step's batch again after the {n} "
           f"steps: losses {', '.join(f'{x:.4f}' for x in held)}  [{card}]")
@@ -3646,7 +3676,7 @@ def mesh_train_full_width(torch, card, mesh):
           f"phase 12 (b): the loss did not fall (each batch's loss at its step {losses}, after "
           f"the steps {held})")
     first = _state_on_host(sp, so)
-    remesh_full_width(torch, card, cfg, tcfg, sp, so, batches[0])
+    remesh_check(torch, card, cfg, tcfg, sp, so, batches[0], "(b)'s state")
     del sp, so
     torch.cuda.empty_cache()
     sp, so, l2, g2, s2 = run()
@@ -3658,16 +3688,120 @@ def mesh_train_full_width(torch, card, mesh):
           f"{same}  [{card}]")
     check(same, "phase 12 (b) again: not bitwise the first run")
     del other, first
+    rec = _op_recorder(torch)
+    with count_seams() as seams, rec:
+        step(sp, so, batches[0])
+    kinds = ", ".join(f"{k} {v['count']} ({v['bytes'] / 2**20:.1f} MiB)" for k, v in seams.items()
+                      if isinstance(v, dict) and v["count"])
+    print(f"phase 12 (b) one step's crossings at rank 0 (count_seams()): {kinds}; "
+          f"{seams['total_bytes'] / 2**20:.1f} MiB in all  [{card}]")
+    check(seams["all-reduce"]["count"] > 0 and seams["all-gather"]["count"] > 0,
+          "phase 12 (b): the step made no model all-reduce or data all-gather")
+    bad = rank_share_faults(cfg, sp, raw[0], rec.seen)
+    print(f"phase 12 (b) that step's {len(rec.seen)} op outputs under a dispatch recorder: "
+          f"faults of a rank's share {bad or 'none'}  [{card}]")
+    check(not bad, f"phase 12 (b): a rank computed more than its share: {bad}")
+    del rec
     one = traced(torch, lambda: step(sp, so, batches[0]), reps=1, warm=False)
     print(f"phase 12 (b) one traced step: {one['text']}  [{card}]")
     del sp, so
     torch.cuda.empty_cache()
 
 
-def remesh_full_width(torch, card, cfg, tcfg, sp, so, batch):
-    """(f) (b)'s state from its 4 logical shards to MESH_SMALL's 2 and back
+def _op_recorder(torch):
+    """A ``TorchDispatchMode`` that keeps (rank, op, output shape, dtype) for
+    every op's outputs, the rank read from ``core.sharding.current_rank``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core.sharding import current_rank
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func._overloadpacket.__name__
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    self.seen.append((current_rank(), name, tuple(t.shape), t.dtype))
+            return out
+
+    return Record()
+
+
+def rank_share_faults(cfg, sp, batch, seen):
+    """What a split step's recorded ops (``_op_recorder``) show against each
+    rank computing its share on ``sp``'s mesh (a dense decoder, grad_accum
+    1): each rank's products (``mm``/``bmm`` outputs as (rows, width)) on
+    its own rows at 1/model of the query, kv (where it divides), MLP and
+    vocabulary widths, never at the whole MLP width; no op output with a
+    whole-vocabulary dimension, of a whole leaf split over ``model``, or of
+    the global batch. Returns the faults found (empty: none)."""
+    from repro_torch.core.sharding import spec_axes
+
+    mesh = sp.mesh
+    m = mesh.axis_size(("model",))
+    rows = batch["tokens"].shape[0] // mesh.axis_size(tuple(a for a in mesh.axis_names if a != "model"))
+    n = rows * batch["tokens"].shape[1]
+    q, kv, ffn, vocab = (cfg.n_heads * cfg.head_dim, cfg.n_kv * cfg.head_dim, cfg.d_ff,
+                         cfg.padded_vocab)
+    faults = []
+    shapes = {s for _, _, s, _ in seen}
+    if any(len(s) > 1 and vocab in s for s in shapes):
+        faults.append("a whole-vocabulary tensor")
+    split = [(tuple(shape), spec) for shape, spec in zip(sp.shapes, sp.spec_leaves())
+             if "model" in spec]
+    # a whole split leaf's shape, unless it is also a rank's block of another
+    # (qwen3: a rank's wq block, 8 of 16 heads, is wk's whole shape)
+    whole = {s for s, _ in split} - {
+        tuple(d // m if "model" in spec_axes(e) else d for d, e in zip(s, spec))
+        for s, spec in split}
+    if shapes & whole:
+        faults.append(f"whole split leaves {sorted(shapes & whole)[:3]}")
+    glob = {(tuple(x.shape), x.dtype) for x in batch.values()}
+    if {(s, dt) for _, _, s, dt in seen} & glob:
+        faults.append("a tensor of the global batch")
+    want = {(n, q // m), (n, ffn // m), (n, vocab // m)} | ({(n, kv // m)} if cfg.n_kv % m == 0
+                                                            else set())
+    for r in range(mesh.size):
+        mine = {(math.prod(s[:-1]), s[-1]) for rank, op, s, _ in seen
+                if rank == r and op in ("mm", "bmm")}
+        if not want <= mine or (n, ffn) in mine:
+            faults.append(f"rank {r}: products {sorted(want - mine)} missing"
+                          + (", a whole MLP width" if (n, ffn) in mine else ""))
+    return faults
+
+
+def _fp32_grads(torch, cfg, sp, batch):
+    """The single device's fp32 gradient of ``sp``'s gathered parameters on
+    the global ``batch``, leaf by leaf on the host, and its global norm."""
+    from repro_torch import tree as TT
+    from repro_torch.models import registry
+    from repro_torch.state import gather_tree
+
+    dev = sp.mesh.devices[0]
+    whole = gather_tree(sp, dev)
+    whole.requires_grad_(True)
+    loss, _ = registry.build(cfg, compute_dtype=torch.float32, device=dev).loss(whole, batch)
+    grads = torch.autograd.grad(loss, TT.leaves(whole))
+    norm = math.sqrt(sum(float(g.double().square().sum()) for g in grads))
+    host = [g.to("cpu") for g in grads]
+    del whole, loss, grads
+    return host, norm
+
+
+def remesh_check(torch, card, cfg, tcfg, sp, so, batch, state):
+    """(f) a state from its 4 logical shards to MESH_SMALL's 2 and back
     through ``distributed.remesh``: bitwise each way; then one step on each
-    mesh from that state, held to the tolerance stated above."""
+    mesh from that state, in fp32 compute (each rank's products are its
+    own blocks', so the two meshes' bf16 products round apart; a bf16 run
+    is held to finiteness, a falling loss and bitwise repeatability, (b)),
+    held to the tolerance stated above, with the |g| of the worst elements
+    printed. ``sp`` and ``so`` are stepped."""
+    import dataclasses
+
     from repro_torch.core.sharding import gather_named
     from repro_torch.distributed import remesh
     from repro_torch.launch.mesh import make_lm_mesh
@@ -3676,7 +3810,8 @@ def remesh_full_width(torch, card, cfg, tcfg, sp, so, batch):
     from repro_torch.state import gather_tree, shard_tree
 
     mesh4 = sp.mesh
-    mesh2 = make_lm_mesh(MESH_SMALL, MESH_AXES, devices=("cuda:0",) * math.prod(MESH_SMALL))
+    dev = mesh4.devices[0]
+    mesh2 = make_lm_mesh(MESH_SMALL, MESH_AXES, devices=(dev,) * math.prod(MESH_SMALL))
     skel = registry.abstract_params(cfg)  # the planner reads the global shapes
 
     def pspecs(mesh):
@@ -3685,16 +3820,16 @@ def remesh_full_width(torch, card, cfg, tcfg, sp, so, batch):
     def ospecs(mesh):
         return SH.opt_specs(cfg, so.ranks[0], mesh, pspecs(mesh))
 
-    def same_leaves(a, b):
-        for i, shape in enumerate(a.shapes):
-            x = gather_named([a.leaves(r)[i] for r in range(a.mesh.size)], shape,
-                             a.spec_leaves()[i], a.mesh, a.mesh.devices[0])
-            y = gather_named([b.leaves(r)[i] for r in range(b.mesh.size)], shape,
-                             b.spec_leaves()[i], b.mesh, b.mesh.devices[0])
-            if not torch.equal(x, y):
-                return False
-        return True
+    def whole_leaf(st, i):
+        with torch.no_grad():
+            return gather_named([st.leaves(r)[i].detach() for r in range(st.mesh.size)],
+                                st.shapes[i], st.spec_leaves()[i], st.mesh, dev)
 
+    def same_leaves(a, b):
+        return all(torch.equal(whole_leaf(a, i), whole_leaf(b, i)) for i in range(len(a.shapes)))
+
+    whole = gather_tree(batch, dev)
+    grads, gnorm = _fp32_grads(torch, cfg, sp, whole)
     t0 = time.monotonic()
     p2, o2 = remesh(sp, pspecs, mesh2), remesh(so, ospecs, mesh2)
     down = spent(torch, t0)
@@ -3706,27 +3841,68 @@ def remesh_full_width(torch, card, cfg, tcfg, sp, so, batch):
                   for x, y in zip(a.leaves(r), b.leaves(r)))
     del p4, o4
     torch.cuda.empty_cache()
-    whole = gather_tree(batch, mesh4.devices[0])
     b2 = shard_tree(whole, SH.batch_specs(cfg, whole, mesh2), mesh2)
-    p2, o2, m2 = registry.make_train_step(cfg, tcfg, mesh=mesh2)(p2, o2, b2)
-    sp, so, m4 = registry.make_train_step(cfg, tcfg, mesh=mesh4)(sp, so, batch)
+    fp32 = dataclasses.replace(tcfg, compute_dtype="float32")
+    p2, o2, m2 = registry.make_train_step(cfg, fp32, mesh=mesh2)(p2, o2, b2)
+    sp, so, m4 = registry.make_train_step(cfg, fp32, mesh=mesh4)(sp, so, batch)
     m_err = max(abs(float(m2[k]) - float(m4[k])) / max(1e-30, TRAIN_TOL["loss"] *
                                                        abs(float(m4[k]))) for k in m4)
-    p_ratio = 0.0
-    for i, shape in enumerate(sp.shapes):
-        x = gather_named([p2.leaves(r)[i] for r in range(mesh2.size)], shape,
-                         p2.spec_leaves()[i], mesh2, mesh2.devices[0])
-        y = gather_named([sp.leaves(r)[i] for r in range(mesh4.size)], shape,
-                         sp.spec_leaves()[i], mesh4, mesh4.devices[0])
-        p_ratio = max(p_ratio, float((x - y).abs().max()) / (
-            TRAIN_TOL["param"] * max(1.0, float(y.abs().max()))))
-    print(f"phase 12 (f) remesh of (b)'s state {mesh4!r} → {mesh2!r}: {down:.2f} s, every leaf "
-          f"bitwise {same_down}; and back: {up:.2f} s, every block bitwise {same_up}; one step "
-          f"on each: metrics largest |Δ| / tolerance {m_err:.3f}, parameters {p_ratio:.3f}  "
-          f"[{card}]")
+    c = min(1.0, tcfg.grad_clip / max(gnorm, 1e-9))
+    lr = float(m4["lr"])
+    gmax = max(float(g.abs().max()) for g in grads)
+    p_ratio, worst, over = 0.0, None, []
+    for i, g in enumerate(grads):
+        x, y, g = whole_leaf(p2, i), whole_leaf(sp, i), g.to(dev)
+        diff = (x - y).abs()
+        base = TRAIN_TOL["param"] * max(1.0, float(y.abs().max()))
+        delta = TRAIN_TOL["grad"] * float(g.abs().max()) + TRAIN_TOL["grad_floor"] * gmax
+        ratio = diff / (base + lr * torch.clamp(2 * c * delta / (c * g.abs() + 1e-8), max=2.0))
+        k = int(ratio.argmax())
+        if worst is None or float(ratio.view(-1)[k]) > p_ratio:
+            p_ratio = float(ratio.view(-1)[k])
+            worst = (i, tuple(y.shape), float(diff.view(-1)[k]), c * float(g.abs().view(-1)[k]))
+        out = diff > base  # over the parameter-only bound
+        if bool(out.any()):
+            over.append((int(out.sum()), float((c * g.abs())[out].max()),
+                         float((c * g.abs())[out].median())))
+        del x, y, g, diff, ratio, out
+    n_over = sum(o[0] for o in over)
+    cg_over = (f"c|g| at most {max(o[1] for o in over):.3e} among them (a leaf's median at "
+               f"most {max(o[2] for o in over):.3e})" if over else "")
+    print(f"phase 12 (f) from {state}: remesh {mesh4!r} → {mesh2!r}: {down:.2f} s, every leaf "
+          f"bitwise {same_down}; and back: {up:.2f} s, every block bitwise {same_up}; one fp32 "
+          f"step on each: metrics largest |Δ| / tolerance {m_err:.3f}, parameters "
+          f"{p_ratio:.3f} (worst: leaf {worst[0]} {worst[1]}, |Δp| {worst[2]:.3e}, c|g| "
+          f"{worst[3]:.3e}; c {c:.4f}, lr {lr:.3e}, eps 1e-8); elements over "
+          f"TRAIN_TOL['param'] · max(1, max |p|) alone: {n_over} {cg_over}  [{card}]")
     check(same_down and same_up, "phase 12 (f): re-meshing changed the state")
-    check(m_err <= 1.0 and p_ratio <= 1.0, "phase 12 (f): the 2-shard step differs")
-    del p2, o2, b2
+    check(m_err <= 1.0 and p_ratio <= 1.0, f"phase 12 (f) from {state}: the 2-shard step differs")
+    del p2, o2, b2, grads
+
+
+def remesh_cut_state(torch, card, mesh):
+    """(f) from a second state: qwen3-1.7b at full width cut to LM_DEPTH
+    layers, placed on ``mesh`` and stepped once with (b)'s settings."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, TrainConfig
+    from repro_torch.data.lm_tokens import TokenPipeline
+    from repro_torch.models import registry
+    from repro_torch.models import sharding as SH
+    from repro_torch.state import shard_tree
+
+    cfg = dataclasses.replace(ARCHS[LM_ARCH], n_layers=LM_DEPTH)
+    dev = torch.device("cuda")
+    tcfg = TrainConfig(lr=1e-3, total_steps=MESH_STEPS, warmup=max(MESH_STEPS // 20, 5))
+    pipe = TokenPipeline(cfg.vocab, TRAIN_SHAPE["seq"], TRAIN_SHAPE["batch"], device=dev)
+    batches = [shard_tree(x, SH.batch_specs(cfg, x, mesh), mesh)
+               for x in (pipe.batch(0), pipe.batch(1))]
+    sp, so = _place_lm(torch, cfg, mesh, dev)
+    sp, so, _ = registry.make_train_step(cfg, tcfg, mesh=mesh)(sp, so, batches[0])
+    remesh_check(torch, card, cfg, tcfg, sp, so, batches[1],
+                 f"{LM_ARCH} cut to {LM_DEPTH} layers after one step")
+    del sp, so
+    torch.cuda.empty_cache()
 
 
 def mesh_vs_single(torch, card, mesh):
@@ -3957,6 +4133,7 @@ def ef_full_size(torch, card):
 DRY_CELLS = (("qwen3-1.7b", "train_4k", "single"), ("qwen2-moe-a2.7b", "decode_32k", "multi"),
              ("deepseek-v2-236b", "train_4k", "multi"))  # (b)
 DRY_CELL_TIMEOUT = 600  # (b): seconds a production cell may take on the host
+DRY_FITS = (("qwen3-1.7b", "train_4k", "single"), 16.0)  # (b): the cell must fit, under this GiB
 PEAK_SLACK = 1.10  # (a): measured peak ≤ this × the dry run's predicted peak
 EXAMPLES = ("torch_quickstart", "torch_grn_discovery", "torch_train_lm",
             "torch_activation_causal")  # (c)
@@ -3981,6 +4158,7 @@ def dry_run_phase(torch, card):
             adamw_grouped_bitwise(torch, card)
             dry_vs_card(torch, card, "train")
             dry_vs_card(torch, card, "decode")
+            dry_vs_card_split(torch, card)
             procs.append(grn_start())
             run_examples(torch, card, out, procs[-1])
             got = nonzero(dict(build.LAUNCHES))
@@ -4036,8 +4214,14 @@ def dry_cells_report(procs, out, card):
               f"phase 13 (b): {arch} {shape} {mesh} exited {proc.returncode}, status "
               f"{rec['status']}: {rec.get('error', '')[:300]}")
         r, mem = rec["roofline"], rec["memory"]
+        gib = mem["total_bytes_per_device"] / 2**30
+        if (arch, shape, mesh) == DRY_FITS[0]:
+            check(rec["fits"] and gib < DRY_FITS[1],
+                  f"phase 13 (b): {arch} {shape} {mesh} takes {gib:.2f} GiB a device, fits "
+                  f"{rec['fits']} (wanted under {DRY_FITS[1]} GiB)")
         print(f"phase 13 (b) dry run {arch} {shape} {mesh} ({rec['mesh_ranks']} ranks, sharded "
-              f"step {rec['sharded_step']}): {rec['status']}, dominant {r['dominant']} "
+              f"step {rec['sharded_step']}, each rank's share {rec.get('rank_share_step')}): "
+              f"{rec['status']}, dominant {r['dominant']} "
               f"(compute {r['t_compute_s']:.4e} s, memory {r['t_memory_s']:.4e} s, collective "
               f"{r['t_collective_s']:.4e} s), {mem['total_bytes_per_device'] / 2**30:.2f} GiB "
               f"a device (arguments {mem['argument_size_in_bytes'] / 2**30:.2f}, peak temporaries "
@@ -4199,6 +4383,82 @@ def dry_vs_card(torch, card, kind):
     check(share <= 1.0, f"phase 13 (a) {what}: the step ran faster than its roofline bound "
                         f"({steady} s < {bound} s): an impossible reading")
     del params, call
+    torch.cuda.empty_cache()
+
+
+def dry_vs_card_split(torch, card):
+    """(a) phase 12 (b)'s step, qwen3-1.7b uncut on MESH_SHAPE's four logical
+    shards of the card (each rank computing its share; bf16 compute, 8 ×
+    128), counted by ``launch.dryrun`` on a ``meta`` mesh of four ranks run
+    in full, the device holding every rank (``every_rank``), and run on the
+    card: the FLOPs equal ``FlopCounterMode`` on the card's step; the
+    card's peak (above what was allocated before the placement) is at most
+    PEAK_SLACK × the device's predicted peak (every rank's blocks and
+    allocations); the steady step is at least the roofline bound."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ARCHS, ShapeCell, TrainConfig
+    from repro_torch.core.sharding import NamedMesh
+    from repro_torch.data.lm_tokens import TokenPipeline
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import registry
+    from repro_torch.models import sharding as SH
+    from repro_torch.roofline import HW
+    from repro_torch.state import shard_tree
+
+    cfg = ARCHS[LM_ARCH]
+    dev = torch.device("cuda")
+    n = TRAIN_SHAPE["steps"]
+    tcfg = TrainConfig(lr=1e-3, total_steps=n, warmup=max(n // 20, 5))
+    b, t = TRAIN_SHAPE["batch"], TRAIN_SHAPE["seq"]
+    t0 = time.monotonic()
+    built = D.build_cell(cfg, ShapeCell("mesh", t, b, "train"), NamedMesh(MESH_SHAPE, MESH_AXES),
+                         tcfg=tcfg, every_rank=True)
+    got = D.count(built["fn"], *built["args"], every_rank=True)
+    count_s = time.monotonic() - t0
+    predicted = built["arg_bytes"] + got["peak_bytes"]
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    mesh = make_lm_mesh(MESH_SHAPE, MESH_AXES, devices=("cuda:0",) * math.prod(MESH_SHAPE))
+    sp, so = _place_lm(torch, cfg, mesh, dev)
+    pipe = TokenPipeline(cfg.vocab, t, b, device=dev)
+    batches = [pipe.batch(i) for i in range(6)]
+    batches = [shard_tree(x, SH.batch_specs(cfg, x, mesh), mesh) for x in batches]
+    step = registry.make_train_step(cfg, tcfg, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        step(sp, so, batches[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    secs = []
+    for i in range(1, 6):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        step(sp, so, batches[i])
+        secs.append(spent(torch, t1))
+    steady = sorted(secs)[len(secs) // 2]
+    flops, byts = got["cost"]["flops"], got["cost"]["bytes accessed"]
+    bound = max(flops / HW["peak_flops"], byts / HW["hbm_bw"])
+    by = "operations" if flops / HW["peak_flops"] >= byts / HW["hbm_bw"] else "bytes"
+    share = bound / steady
+    print(f"phase 13 (a) {LM_ARCH} full width, the split train step on {MESH_SHAPE} logical "
+          f"shards ({MESH_AXES}), {b} × {t}, counted on a meta mesh of every rank in "
+          f"{count_s:.1f} s: FLOPs counted {flops:.6e}, FlopCounterMode on the card "
+          f"{fc.get_total_flops():.6e}; bytes accessed {byts:.6e}; predicted device peak "
+          f"{predicted / 2**30:.3f} GiB (every rank's blocks {built['arg_bytes'] / 2**30:.3f}, "
+          f"the step {got['peak_bytes'] / 2**30:.3f}), measured {peak / 2**30:.3f} GiB "
+          f"({peak / predicted:.4f} of the prediction); roofline bound {bound * 1e3:.3f} ms "
+          f"({by}), steady step {steady * 1e3:.3f} ms, share {share:.4f}  [{card}]")
+    check(fc.get_total_flops() == flops,
+          f"phase 13 (a) split step: FLOPs {flops} counted, {fc.get_total_flops()} on the card")
+    check(peak <= PEAK_SLACK * predicted,
+          f"phase 13 (a) split step: peak {peak} above {PEAK_SLACK} × the predicted {predicted}")
+    check(share <= 1.0, f"phase 13 (a) split step: the step ran faster than its roofline bound "
+                        f"({steady} s < {bound} s): an impossible reading")
+    del sp, so, batches
     torch.cuda.empty_cache()
 
 

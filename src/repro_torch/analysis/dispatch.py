@@ -745,10 +745,11 @@ def entry_points() -> list[Entry]:
         for name, arch in (("lm_train_step", "qwen3-1.7b"),
                            ("lm_train_step_moe", "qwen2-moe-a2.7b"))] + [
         Entry("lm_train_step_sharded", sharded_train, 0, 0, None,
-              f"{R.PACKAGE_DIR}/models/registry.py", "models/registry.py::sharded_train_step",
+              f"{R.PACKAGE_DIR}/models/registry.py", "models/registry.py::split_train_step",
               (), "one train step of reduced qwen3-1.7b on a (data 2, model 2) mesh of logical "
-              "shards, grad_accum 2 (the compute copy, the gathered batch's gradient sliced "
-              "into blocks, the clip over blocks, AdamW a block) holds no hand kernel; the "
+              "shards, grad_accum 2, each rank computing its share (its rows, its FSDP-gathered "
+              "blocks, tensor-parallel products, a vocabulary-parallel loss, the collectives in "
+              "rank order, the clip over blocks, AdamW a block) holds no hand kernel; the "
               "reference's GSPMD step holds no pallas_call (0)"),
         Entry("ef_compressed_mean", ef_mean, 0, 0, None, f"{R.PACKAGE_DIR}/optim/compress.py",
               "optim/compress.py::ef_compressed_mean", (),

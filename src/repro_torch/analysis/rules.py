@@ -136,7 +136,12 @@ HOT: frozenset[str] = frozenset(
         "_update_group")]
     # training on a named mesh: the sharded step, the anchors, the compressed
     # mean, the pipeline's ticks and the re-meshing
-    + [f"models/registry.py::{f}" for f in ("sharded_train_step", "_sum_in_order")]
+    + [f"models/registry.py::{f}" for f in (
+        "sharded_train_step", "_sum_in_order", "split_train_step", "_clip_and_update")]
+    # the step in which each rank computes its share, and its collectives
+    + [f"models/spmd.py::{f}" for f in (
+        "_fetch", "_kv_head", "_lookup", "_masked_logits", "_target", "forward", "backward",
+        "_ce_sums", "block", "_microbatch", "split_loss", "layer", "grads")]
     + [f"models/meshops.py::{f}" for f in (
         "current_mesh", "use_mesh", "_filter", "shard_act", "shard_residual", "shard_logits")]
     + ["models/sharding.py::mesh_axes", "optim/adamw.py::norm_and_scale",
@@ -145,7 +150,10 @@ HOT: frozenset[str] = frozenset(
        "tree.py::tree_map", "tree.py::as_tree"]
     + [f"core/sharding.py::{f}" for f in (
         "gather_named", "shard_named", "block_slices", "block_index", "distinct_ranks",
-        "_distinct_ranks", "spec_axes", "check_spec", "move", "on_rank", "current_rank")]
+        "_distinct_ranks", "spec_axes", "check_spec", "move", "on_rank", "current_rank",
+        "each", "_in_order", "_all_gather", "_reduce_scatter", "_pieces", "_all_reduce",
+        "forward", "backward", "all_gather", "reduce_scatter", "all_reduce", "copy_to",
+        "all_reduce_max", "all_reduce_sum")]
     + [f"distributed/pipeline.py::{f}" for f in ("pipeline_apply", "_stage_device")]
     + ["distributed/elastic.py::_host", "distributed/elastic.py::_regroup"]
 )

@@ -26,8 +26,26 @@ The LM side's meshes have named axes, as ``jax.make_mesh((2, 2, 2),
 axes split each dimension. :func:`shard_named` and :func:`gather_named`
 place a tensor on such a mesh and back; ``state.shard_tree`` does it for a
 tree. A tensor crosses between the ranks of a named mesh only through
-:func:`move`, which :func:`count_seams` records by rank; :func:`on_rank`
-marks one rank's work for a counter.
+:func:`move`, which :func:`count_seams` records (those rank 0 sends or
+receives); :func:`on_rank` marks one rank's work for a counter.
+
+The collectives of an SPMD program over a named mesh (``models/spmd.py``'s
+train step) act on one tensor a rank, in rank order, over the ranks that
+one :class:`RankSet` drives: :func:`all_gather` (its backward a
+reduce-scatter), :func:`reduce_scatter` (its backward an all-gather),
+:func:`all_reduce` (Megatron's *g*: its backward the identity on each
+rank's gradient) and :func:`copy_to` (Megatron's *f*: the identity, its
+backward an all-reduce), each a ``torch.autograd.Function``. Every
+crossing is a :func:`move` of its kind, and every sum adds in rank order,
+so a program is bitwise repeatable and every rank of a group holds the
+same bits. An all-reduce is a reduce-scatter of equal pieces of the
+flattened tensor and an all-gather of the summed pieces, each rank moving
+2 (n − 1) / n of the tensor each way, as a ring would. On a mesh of
+``meta`` devices under :func:`lead_rank_only` a :class:`RankSet` drives
+rank 0 alone: the others' tensors are stood in for by rank 0's (every rank
+holds blocks of one shape), and the moves rank 0 would make to them are
+made all the same, so rank 0's crossings are counted as in a run of every
+rank (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -383,10 +401,10 @@ _RANKS: list = []  # the on_rank scopes, innermost last
 def move(x: torch.Tensor, device, src: int, dst: int, kind: str) -> torch.Tensor:
     """``x``, rank ``src``'s, as rank ``dst``'s on ``device``: the one place
     a tensor crosses between ranks. Each active :func:`count_seams` record
-    counts it under ``kind`` when the ranks differ, whatever the devices
-    (logical shards of one card or of the CPU count what separate cards
-    would move)."""
-    if _SEAMS and src != dst:
+    counts it under ``kind`` when rank 0 sends or receives it, whatever the
+    devices (logical shards of one card or of the CPU count what separate
+    cards would move)."""
+    if _SEAMS and src != dst and 0 in (src, dst):
         nbytes = x.numel() * x.element_size()
         for rec in _SEAMS:
             rec[kind]["count"] += 1
@@ -397,7 +415,8 @@ def move(x: torch.Tensor, device, src: int, dst: int, kind: str) -> torch.Tensor
 @contextlib.contextmanager
 def count_seams():
     """Yields ``{kind: {"count", "bytes"}, "total_bytes"}`` (the shape of
-    ``roofline.collective_bytes``), filled by the :func:`move` calls inside;
+    ``roofline.collective_bytes``), filled by the :func:`move` calls inside
+    that rank 0 sends or receives (one card's traffic, both directions);
     ``total_bytes`` is set on exit."""
     rec = {k: {"count": 0, "bytes": 0} for k in SEAM_KINDS}
     _SEAMS.append(rec)
@@ -423,3 +442,234 @@ def on_rank(rank: int):
 def current_rank() -> int | None:
     """The rank of the innermost :func:`on_rank`, None outside any."""
     return _RANKS[-1] if _RANKS else None
+
+
+# --------------------------------------------------------------------------
+# collectives of an SPMD program: one tensor a rank, in rank order
+# --------------------------------------------------------------------------
+_LEAD: list = []  # the lead_rank_only scopes
+
+
+@contextlib.contextmanager
+def lead_rank_only():
+    """Inside, a :class:`RankSet` on a mesh of ``meta`` devices drives rank 0
+    alone (the dry run's count of one card's program on a production mesh)."""
+    _LEAD.append(True)
+    try:
+        yield
+    finally:
+        _LEAD.pop()
+
+
+class RankSet:
+    """The ranks of a named mesh that one process drives, in rank order:
+    every rank, or rank 0 alone on a ``meta`` mesh under
+    :func:`lead_rank_only`. A per-rank value is a list aligned with
+    :attr:`ranks`."""
+
+    def __init__(self, mesh: NamedMesh):
+        self.mesh = mesh
+        self.devices = mesh.require_devices()
+        self.lead = bool(_LEAD) and all(d.type == "meta" for d in self.devices)
+        self.ranks = [0] if self.lead else list(range(mesh.size))
+        self._groups: dict = {}
+
+    def group(self, rank: int, axes) -> tuple:
+        """The ranks that differ from ``rank`` only along ``axes``, in rank
+        order (row-major over ``axes``: a block's index along them)."""
+        key = (rank, axes)
+        if key not in self._groups:
+            c = self.mesh.coords(rank)
+            self._groups[key] = tuple(
+                r for r in range(self.mesh.size)
+                if all(v == c[a] for a, v in self.mesh.coords(r).items() if a not in axes))
+        return self._groups[key]
+
+    def size(self, axes) -> int:
+        return self.mesh.axis_size(axes)
+
+    def value(self, xs: list, src: int):
+        """Rank ``src``'s tensor of the per-rank list ``xs`` (rank 0's stands
+        in for a rank that is not driven)."""
+        return xs[0] if self.lead else xs[src]
+
+    def each(self, fn, *lists) -> list:
+        """``fn`` on each driven rank's arguments, under its :func:`on_rank`."""
+        out = []
+        for i, r in enumerate(self.ranks):
+            with on_rank(r):
+                out.append(fn(*(xs[i] for xs in lists)))
+        return out
+
+    def others(self, axes) -> tuple:
+        """The ranks of rank 0's group that are not driven: rank 0's moves to
+        them are made by rank 0 alone (a lead run)."""
+        return self.group(0, axes)[1:] if self.lead else ()
+
+
+def _in_order(parts: list, op: str) -> torch.Tensor:
+    out = parts[0]
+    for x in parts[1:]:
+        out = out + x if op == "sum" else torch.maximum(out, x)
+    return out
+
+
+def _all_gather(rs: RankSet, xs: list, axes, dim: int, kind: str = "all-gather") -> list:
+    out = []
+    for r in rs.ranks:
+        parts = [move(rs.value(xs, g), rs.devices[r], g, r, kind) for g in rs.group(r, axes)]
+        with on_rank(r):
+            out.append(torch.cat(parts, dim))
+    for dst in rs.others(axes):
+        move(xs[0], rs.devices[dst], 0, dst, kind)
+    return out
+
+
+def _reduce_scatter(rs: RankSet, xs: list, axes, dim: int, op: str = "sum",
+                    kind: str = "reduce-scatter") -> list:
+    n = rs.size(axes)
+    blocks = [x.chunk(n, dim) for x in xs]  # each rank's n blocks, cut once
+    out = []
+    for r in rs.ranks:
+        grp = rs.group(r, axes)
+        k = grp.index(r)
+        parts = [move(rs.value(blocks, g)[k], rs.devices[r], g, r, kind) for g in grp]
+        with on_rank(r):
+            out.append(_in_order(parts, op))
+    for j, dst in enumerate(rs.others(axes), 1):
+        move(blocks[0][j], rs.devices[dst], 0, dst, kind)
+    return out
+
+
+def _pieces(x: torch.Tensor, n: int) -> tuple:
+    return torch.tensor_split(x.reshape(-1), n)
+
+
+def _all_reduce(rs: RankSet, xs: list, axes, op: str = "sum") -> list:
+    """Each rank's tensor the ``op`` (``sum`` or ``max``) over its group, in
+    rank order: the n pieces of the flattened tensors reduce-scattered (rank
+    k of the group sums piece k) and all-gathered; an empty piece does not
+    move."""
+    n = rs.size(axes)
+    kind = "all-reduce"
+    pieces = [_pieces(x, n) for x in xs]  # each rank's n pieces, cut once
+    red = []
+    for r in rs.ranks:
+        grp = rs.group(r, axes)
+        k = grp.index(r)
+        own = rs.value(pieces, r)[k]
+        parts = [own if g == r or not own.numel() else
+                 move(rs.value(pieces, g)[k], rs.devices[r], g, r, kind) for g in grp]
+        with on_rank(r):
+            red.append(_in_order(parts, op))
+    lead = pieces[0]
+    for j, dst in enumerate(rs.others(axes), 1):
+        if lead[j].numel():
+            move(lead[j], rs.devices[dst], 0, dst, kind)
+    out = []
+    for i, r in enumerate(rs.ranks):
+        grp = rs.group(r, axes)
+        parts = []
+        for j, g in enumerate(grp):
+            piece = red[i] if g == r else (lead[j] if rs.lead else red[g])
+            parts.append(piece if g == r or not piece.numel() else
+                         move(piece, rs.devices[r], g, r, kind))
+        with on_rank(r):
+            out.append(torch.cat(parts).reshape(xs[i].shape))
+    for dst in rs.others(axes):
+        if lead[0].numel():
+            move(red[0], rs.devices[dst], 0, dst, kind)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rs, axes, dim, *xs):
+        ctx.rs, ctx.axes, ctx.dim = rs, axes, dim
+        return tuple(_all_gather(rs, list(xs), axes, dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None, *_reduce_scatter(ctx.rs, list(gs), ctx.axes, ctx.dim))
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rs, axes, dim, *xs):
+        ctx.rs, ctx.axes, ctx.dim = rs, axes, dim
+        return tuple(_reduce_scatter(rs, list(xs), axes, dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None, *_all_gather(ctx.rs, list(gs), ctx.axes, ctx.dim))
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rs, axes, *xs):
+        return tuple(_all_reduce(rs, list(xs), axes))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *gs)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rs, axes, *xs):
+        ctx.rs, ctx.axes = rs, axes
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *_all_reduce(ctx.rs, list(gs), ctx.axes))
+
+
+def all_gather(rs: RankSet, xs: list, axes, dim: int) -> list:
+    """Each rank's blocks of its ``axes`` group concatenated along ``dim``,
+    in rank order; the backward reduce-scatters. A group of one is the
+    identity."""
+    axes = spec_axes(axes)
+    return list(_AllGather.apply(rs, axes, dim, *xs)) if rs.size(axes) > 1 else list(xs)
+
+
+def reduce_scatter(rs: RankSet, xs: list, axes, dim: int) -> list:
+    """Each rank's block along ``dim`` of the sum, in rank order, of its
+    ``axes`` group's tensors; the backward all-gathers."""
+    axes = spec_axes(axes)
+    return list(_ReduceScatter.apply(rs, axes, dim, *xs)) if rs.size(axes) > 1 else list(xs)
+
+
+def all_reduce(rs: RankSet, xs: list, axes) -> list:
+    """Each rank's tensor the sum, in rank order, of its ``axes`` group's
+    (Megatron's *g*: the backward is the identity on each rank's
+    gradient)."""
+    axes = spec_axes(axes)
+    return list(_AllReduce.apply(rs, axes, *xs)) if rs.size(axes) > 1 else list(xs)
+
+
+def copy_to(rs: RankSet, xs: list, axes) -> list:
+    """The identity whose backward all-reduces each rank's gradient over
+    its ``axes`` group (Megatron's *f*)."""
+    axes = spec_axes(axes)
+    return list(_CopyTo.apply(rs, axes, *xs)) if rs.size(axes) > 1 else list(xs)
+
+
+def all_reduce_max(rs: RankSet, xs: list, axes) -> list:
+    """Each rank's tensor the elementwise max over its ``axes`` group (no
+    gradient)."""
+    axes = spec_axes(axes)
+    if rs.size(axes) == 1:
+        return list(xs)
+    with torch.no_grad():
+        return _all_reduce(rs, [x.detach() for x in xs], axes, "max")
+
+
+def all_reduce_sum(rs: RankSet, xs: list, axes) -> list:
+    """:func:`all_reduce` outside autograd (a gradient's sum after the
+    backward)."""
+    axes = spec_axes(axes)
+    if rs.size(axes) == 1:
+        return list(xs)
+    with torch.no_grad():
+        return _all_reduce(rs, list(xs), axes)

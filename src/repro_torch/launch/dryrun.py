@@ -10,23 +10,36 @@ no sharded serving step), runs it on the ``meta`` trees of
 ``registry.abstract_*`` and ``input_specs`` under :class:`Counter`, and
 records:
 
-  * ``memory``: rank 0's working set. Its blocks of the parameters, the
-    optimizer state and the batch from the planner's specs, and the peak of
-    live bytes the step allocates (for a train step the compute copy, the
-    gathered batch, the gradient, the activations and rank 0's update),
-    each allocation rounded to the CUDA caching allocator's 512 bytes.
-    ``fits`` holds the total against the card's 80 GB;
+  * ``memory``: a device's working set, the reference's "per-chip
+    working set". On the production mesh a device holds one rank, so it is
+    rank 0's: its blocks of the parameters, the optimizer state and the
+    batch from the planner's specs, and the peak of live bytes the step
+    allocates, each allocation rounded to the CUDA caching allocator's 512
+    bytes. For the dense and vlm families the step computes rank 0's share
+    (``models/spmd.py``): a layer's gathered blocks, the layer inputs remat
+    keeps, the rank's rows' activations and its vocabulary block of the
+    logits, and block-sized fp32 gradients. For the other families it is
+    the gathered step: the compute copy, the gathered batch, the whole
+    gradient, the activations and rank 0's update. On a mesh of logical
+    shards of one device (``count(..., every_rank=True)``) every rank's
+    blocks and allocations are the device's. ``fits`` holds the total
+    against the card's 80 GB;
   * ``cost``: FLOPs as ``torch.utils.flop_counter.FlopCounterMode`` counts
     them (its ``flop_registry``, its decompositions), ``bytes accessed``
     (each op's input and output bytes: the eager program's own traffic;
     XLA's count is after fusion, so the two are not the same quantity) and
     ``transcendentals`` (the elements of exp, log, sqrt, tanh and kin);
-  * ``collectives``: the bytes that cross between ranks at the step's
-    seams (``core.sharding.move``), by rank, which
+  * ``collectives``: the bytes rank 0 sends and receives at the step's
+    seams (``core.sharding.move``, ``count_seams()``), which
     ``roofline.collective_bytes`` derives from the specs as well;
   * ``roofline``: the three terms on the H100's peaks.
 
-Only rank 0's work is counted: the step marks each rank's part
+Only rank 0's work is counted. The step that computes each rank's share is
+the same program on every rank, on blocks of one shape, so on the
+production mesh its count runs rank 0's program alone
+(``core.sharding.lead_rank_only``): its collectives take rank 0's blocks
+for the other ranks' and make the moves rank 0 would make, with the code
+that trains. The gathered step marks each rank's part
 (``core.sharding.on_rank``), and the counter runs the other ranks' ops on
 the shapes alone. Every rank of the production mesh shares one tree of
 ``meta`` blocks (there is no data to keep apart).
@@ -71,10 +84,11 @@ from torch.utils.flop_counter import flop_registry
 
 from .. import tree as T
 from ..configs import ARCHS, SHAPES, TrainConfig
-from ..core.sharding import count_seams, current_rank
+from ..core.sharding import count_seams, current_rank, lead_rank_only
 from ..models import costmode
 from ..models import registry as R
 from ..models import sharding as SH
+from ..models import spmd as SPMD
 from ..obs import MonotonicClock
 from ..roofline import HW, collective_bytes, roofline_report
 from ..state import ShardedTree
@@ -196,16 +210,18 @@ class Counter(TorchDispatchMode):
     ``FlopCounterMode``'s decompositions), bytes accessed (each op's tensor
     inputs and outputs; views move nothing), transcendentals, and the live
     bytes of the storages the step allocates (their ``peak``). Only rank
-    0's work and work outside any ``on_rank`` scope count; ``flops_all``
-    adds every rank's FLOPs.
+    0's work and work outside any ``on_rank`` scope count, or with
+    ``every_rank`` every rank's (logical shards: one device does it all);
+    ``flops_all`` adds every rank's FLOPs.
 
     A meta kernel is run once for each distinct op and argument metadata;
     a repeat builds its outputs from the first's shapes (an in-place op
     returns its mutated argument), which makes a step of many layers and
     ranks fast to count."""
 
-    def __init__(self, alloc: int = _ALLOC):
+    def __init__(self, alloc: int = _ALLOC, every_rank: bool = False):
         super().__init__()
+        self.every_rank = every_rank
         self.flops = 0
         self.flops_all = 0
         self.bytes = 0
@@ -249,7 +265,7 @@ class Counter(TorchDispatchMode):
                 r = func.decompose(*args, **kwargs)
             if r is not NotImplemented:
                 return r
-        counted = current_rank() in (None, 0)
+        counted = self.every_rank or current_rank() in (None, 0)
         kind = info.kind
         if not counted and info.mirror is not None:
             # another rank's multi-tensor op: only its shapes matter, and its
@@ -335,10 +351,11 @@ class Counter(TorchDispatchMode):
                 "transcendentals": float(self.transcendentals)}
 
 
-def count(fn, *args) -> dict:
-    """``fn(*args)`` run under :class:`Counter` and ``count_seams``: {"cost",
-    "flops_all", "peak_bytes", "collectives", "ops", "out"}."""
-    cnt = Counter()
+def count(fn, *args, every_rank: bool = False) -> dict:
+    """``fn(*args)`` run under :class:`Counter` (``every_rank``: a device
+    holding every rank) and ``count_seams()``: {"cost", "flops_all",
+    "peak_bytes", "collectives", "ops", "out"}."""
+    cnt = Counter(every_rank=every_rank)
     with count_seams() as seams, cnt:
         out = fn(*args)
     return {"cost": cnt.result(), "flops_all": float(cnt.flops_all), "peak_bytes": cnt.peak,
@@ -389,23 +406,32 @@ def rank0_bytes(tree, specs, mesh) -> int:
                for x, sp in zip(T.leaves(tree), T.leaves(specs)))
 
 
-def _meta_sharded(tree, specs, mesh) -> ShardedTree:
+def _meta_sharded(tree, specs, mesh, every_rank: bool = False) -> ShardedTree:
     """``tree`` (``meta``) placed on ``mesh`` by ``specs``: one tree of
-    ``meta`` blocks, shared by every rank."""
+    ``meta`` blocks, shared by every rank (or, ``every_rank``, a tree a
+    rank: logical shards whose every rank runs)."""
     leaves = T.leaves(tree)
-    blocks = [torch.empty(_block_shape(x.shape, sp, mesh), dtype=x.dtype, device="meta")
-              for x, sp in zip(leaves, T.leaves(specs))]
-    one = T.unflatten_like(tree, blocks)
-    return ShardedTree(mesh, specs, [one] * mesh.size, [tuple(x.shape) for x in leaves])
+
+    def one():
+        return T.unflatten_like(tree, [
+            torch.empty(_block_shape(x.shape, sp, mesh), dtype=x.dtype, device="meta")
+            for x, sp in zip(leaves, T.leaves(specs))])
+
+    ranks = [one() for _ in range(mesh.size)] if every_rank else [one()] * mesh.size
+    return ShardedTree(mesh, specs, ranks, [tuple(x.shape) for x in leaves])
 
 
-def build_cell(cfg, shape, mesh, serve_dtype=torch.bfloat16, tcfg=None) -> dict:
+def build_cell(cfg, shape, mesh, serve_dtype=torch.bfloat16, tcfg=None,
+               every_rank: bool = False) -> dict:
     """One dry-run cell's step and its ``meta`` arguments: {"fn", "args",
-    "params", "arg_bytes" (rank 0's), "planned_arg_bytes" (a serving
-    cell's per-rank bytes under the planner), "sharded", "n_chips",
-    "coll" (the crossings the specs give)}. ``shape`` names a cell of
-    ``SHAPES`` or is a ``ShapeCell``; ``mesh`` is a planning mesh (the
-    production one); a train cell runs on its ranks as ``meta`` devices."""
+    "params", "arg_bytes" (a device's), "planned_arg_bytes" (a serving
+    cell's per-rank bytes under the planner), "sharded", "spmd" (the step
+    computes each rank's share), "n_chips", "coll" (the crossings the
+    specs give)}. ``shape`` names a cell of ``SHAPES`` or is a
+    ``ShapeCell``; ``mesh`` is a planning mesh (the production one); a
+    train cell runs on its ranks as ``meta`` devices: rank 0's program
+    alone where the step is SPMD, or with ``every_rank`` every rank, each
+    with its own blocks, on one device (logical shards)."""
     cell = SHAPES[shape] if isinstance(shape, str) else shape
     batch_abs = R.input_specs(cfg, cell)
     bspecs = SH.batch_specs(cfg, batch_abs, mesh)
@@ -418,16 +444,21 @@ def build_cell(cfg, shape, mesh, serve_dtype=torch.bfloat16, tcfg=None) -> dict:
         pspecs = SH.param_specs(cfg, params_abs, run_mesh)
         ospecs = SH.opt_specs(cfg, opt_abs, run_mesh, pspecs)
         bspecs = SH.batch_specs(cfg, batch_abs, run_mesh)
-        args = (_meta_sharded(params_abs, pspecs, run_mesh),
-                _meta_sharded(opt_abs, ospecs, run_mesh),
-                _meta_sharded(batch_abs, bspecs, run_mesh))
+        args = tuple(_meta_sharded(tree, specs, run_mesh, every_rank) for tree, specs in
+                     ((params_abs, pspecs), (opt_abs, ospecs), (batch_abs, bspecs)))
         arg_bytes = (rank0_bytes(params_abs, pspecs, run_mesh)
                      + rank0_bytes(opt_abs, ospecs, run_mesh)
                      + rank0_bytes(batch_abs, bspecs, run_mesh))
-        return {"fn": R.make_train_step(cfg, tcfg, mesh=run_mesh), "args": args,
-                "params": params_abs, "arg_bytes": arg_bytes, "planned_arg_bytes": arg_bytes,
-                "sharded": True, "n_chips": mesh.size,
-                "coll": collective_bytes(run_mesh, params_abs, pspecs, batch_abs, bspecs)}
+        device_bytes = sum(_alloc(_nbytes(x)) for st in args for r in range(run_mesh.size)
+                           for x in st.leaves(r)) if every_rank else arg_bytes
+        step = R.make_train_step(cfg, tcfg, mesh=run_mesh)
+        spmd = SPMD.splits(cfg)
+        fn = step if every_rank or not spmd else _lead(step)
+        return {"fn": fn, "args": args, "params": params_abs, "arg_bytes": device_bytes,
+                "planned_arg_bytes": arg_bytes, "sharded": True, "spmd": spmd,
+                "n_chips": mesh.size,
+                "coll": collective_bytes(run_mesh, params_abs, pspecs, batch_abs, bspecs, cfg=cfg,
+                                         tcfg=tcfg)}
 
     params_abs = R.abstract_params(cfg, serve_dtype)
     pspecs = SH.param_specs(cfg, params_abs, mesh)
@@ -443,8 +474,17 @@ def build_cell(cfg, shape, mesh, serve_dtype=torch.bfloat16, tcfg=None) -> dict:
                    + rank0_bytes(cache_abs, SH.cache_specs(cfg, cache_abs, mesh), mesh))
     arg_bytes = sum(_alloc(_nbytes(x)) for a in args for x in T.leaves(a))
     return {"fn": fn, "args": args, "params": params_abs, "arg_bytes": arg_bytes,
-            "planned_arg_bytes": planned, "sharded": False, "n_chips": 1,
+            "planned_arg_bytes": planned, "sharded": False, "spmd": False, "n_chips": 1,
             "coll": collective_bytes()}
+
+
+def _lead(step):
+    """``step`` run as rank 0's program alone (``core.sharding.lead_rank_only``)."""
+    def lead_step(*args):
+        with lead_rank_only():
+            return step(*args)
+
+    return lead_step
 
 
 def memory_record(arg_bytes: int, peak_bytes: int, planned: int | None = None) -> dict:
@@ -502,12 +542,13 @@ def run_cell(arch: str, shape: str, mesh_kind: str, force=False) -> dict:
                                  cfg.n_layers)["f"]
         mem = memory_record(built["arg_bytes"], full["peak_bytes"], built["planned_arg_bytes"])
         roof = roofline_report(cost, coll, cfg, cell, built["params"], built["n_chips"],
-                               global_flops=flops_all)
+                               global_flops=None if built["spmd"] else flops_all)
         rec.update(
             status="ok",
             n_chips=built["n_chips"],
             mesh_ranks=mesh.size,
             sharded_step=built["sharded"],
+            rank_share_step=built["spmd"],
             count_s=round(_CLK.now() - t0, 2),
             full_depth_s=round(t_full, 2),
             memory=mem,

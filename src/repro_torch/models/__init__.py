@@ -5,4 +5,5 @@ and zamba2's ``site``) and Whisper's encoder-decoder, served and trained.
 ``registry.build(cfg)`` is the entry, ``registry.make_train_step`` the
 training step (on one device, or on a named mesh of logical shards laid
 out by ``sharding``'s planner, with ``meshops``' anchors checking the batch
-split)."""
+split; ``spmd`` is the mesh step in which each rank computes its share,
+for the dense and vlm families)."""

@@ -17,11 +17,15 @@ parameter's sharding (a reduce-scatter instead of an all-reduce and a
 slice), ``MOE_GATHER_DISPATCH`` builds the (E, C, D) dispatch buffer as a
 row gather so that it is never reduced across devices, and
 ``MOE_DATA_CAP`` moves a sharding anchor on the buffer's capacity axis.
-The port's forward and backward run as one on one device, also in the
-sharded train step, which gives each block its slice of the one gradient:
-there is no collective for them to change. The port has one MoE dispatch,
-the row writes, which the tests hold to the reference under both values
-of ``MOE_GATHER_DISPATCH``.
+The port's step that computes each rank's share (``models/spmd.py``, the
+dense and vlm families) always reduce-scatters each gradient onto its
+block, ``SCATTER_GRADS``'s choice; the other families' sharded step runs
+the forward and backward as one on one device and gives each block its
+slice of the one gradient: there is no collective for the flags to
+change. The port has one MoE dispatch, the row writes, which the tests
+hold to the reference under both values of ``MOE_GATHER_DISPATCH``.
+``CHUNKED_CE`` also holds in the split step, over each rank's vocabulary
+block.
 """
 from __future__ import annotations
 

@@ -9,21 +9,36 @@ learning rate and AdamW, all on the device. ``input_specs`` and
 port's ``jax.eval_shape``): shapes and dtypes, no allocation.
 
 Given a named mesh (``make_train_step(..., mesh=)``), the step trains on
-the mesh's logical shards, one process owning them all. The parameters
-and the optimizer state are laid out by ``sharding.param_specs`` and
-``opt_specs`` (``state.shard_tree``), the batch by ``batch_specs``. The
-step gathers the parameters' blocks into one compute copy and the batch's
-rows, in rank order, into the global batch, both on the mesh's first
-device, and runs the single-device loss and gradients on it
-(``grad_accum`` microbatches of the global batch, fp32 accumulators; the
-anchors of ``meshops`` check that each microbatch splits over (pod,
-data)). That is the maths of the reference's GSPMD step: one token mean
-over every labelled token of a microbatch, MoE capacity, slots and the
-aux loss over all of its tokens. Each shard's block of the gradient is its
-slice of the one gradient (the reduce-scatter), the clip adds each leaf's
-distinct blocks' squared sums in rank order, and AdamW updates every block
-on its own shard. So the mesh shards storage, the batch and the update,
-not the products.
+the mesh's ranks, one process driving them all (logical shards of one
+device, or one card a rank). The parameters and the optimizer state are
+laid out by ``sharding.param_specs`` and ``opt_specs``
+(``state.shard_tree``), the batch by ``batch_specs``. Which step runs is
+the family's:
+
+* ``dense`` and ``vlm`` (every layer attention and a dense MLP): each rank
+  computes its own share, the reference's GSPMD program
+  (``models/spmd.py``): its rows of each microbatch, FSDP over ``data``
+  (each layer's blocks gathered just before it, and again under remat in
+  the backward), tensor-parallel products over ``model`` with the
+  row-parallel outputs all-reduced, a vocabulary-parallel embedding and
+  loss, the gradient reduce-scattered over ``data`` and all-reduced over
+  ``pod``. No rank holds a whole split parameter, the whole gradient or
+  the global batch.
+* every other family (MoE, MLA, Mamba2, RWKV6, zamba2's sites, Whisper):
+  the gathered step (:func:`_sharded_step`). It gathers the parameters'
+  blocks into one compute copy and the batch's rows, in rank order, into
+  the global batch, both on the mesh's first device, and runs the
+  single-device loss and gradients on it (``grad_accum`` microbatches of
+  the global batch, fp32 accumulators; the anchors of ``meshops`` check
+  that each microbatch splits over (pod, data)). That is the maths of the
+  reference's GSPMD step: one token mean over every labelled token of a
+  microbatch, MoE capacity, slots and the aux loss over all of its tokens.
+  Each shard's block of the gradient is its slice of the one gradient (the
+  reduce-scatter). So for these families the mesh shards storage, the
+  batch and the update, not the products.
+
+Both steps end alike: the clip adds each leaf's distinct blocks' squared
+sums in rank order, and AdamW updates every block on its own shard.
 """
 from __future__ import annotations
 
@@ -119,6 +134,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None, mesh=None)
                 param_dtype=getattr(torch, tcfg.param_dtype), remat=tcfg.remat, device=device)
     accum = max(tcfg.grad_accum, 1)
     if mesh is not None:
+        from . import spmd
+
+        if spmd.splits(cfg):
+            return _split_step(api, tcfg, accum, mesh)
         return _sharded_step(api, tcfg, accum, mesh)
 
     def train_step(params, opt_state, batch):
@@ -141,24 +160,92 @@ def _sum_in_order(xs: list) -> torch.Tensor:
     return out
 
 
-def _sharded_step(api: ModelAPI, tcfg: TrainConfig, accum: int, mesh):
-    """The train step on a named mesh (the module docstring)."""
-    from ..core.sharding import block_slices, distinct_ranks, move, on_rank, spec_axes
-    from ..state import gather_tree
-    from .meshops import use_mesh
+def _check_placed(mesh, params, opt_state, batch) -> None:
+    from ..core.sharding import spec_axes
     from .sharding import mesh_axes
 
-    devs = mesh.require_devices()
+    if not params.mesh == opt_state.mesh == batch.mesh == mesh:
+        raise ValueError("the parameters, the optimizer state and the batch must lie on "
+                         "the step's mesh")
     dp, _ = mesh_axes(mesh)
+    if any(spec_axes(spec[0] if spec else None) != dp for spec in batch.spec_leaves()):
+        raise ValueError(f"the batch's rows must be split over the mesh's {dp} axes "
+                         "(models.sharding.batch_specs)")
+
+
+def _clip_and_update(rs, tcfg: TrainConfig, params, opt_state, blocks: list,
+                     own: bool = False):
+    """The clip and AdamW on a mesh: ``blocks`` each driven rank's fp32
+    gradient blocks (``own``: each a tensor of its own, scaled in place;
+    else they may share storage, as views of one gradient do). Each rank
+    squares and sums its distinct blocks, rank 0 adds each leaf's sums in
+    rank order and sends every rank the clip factor, and each rank updates
+    its blocks. Returns (the global norm, rank 0's learning rate)."""
+    from ..core.sharding import distinct_ranks, move, on_rank
+
+    devs, dev0 = rs.devices, rs.devices[0]
+    specs = params.spec_leaves()
+    owners = [distinct_ranks(spec, rs.mesh) for spec in specs]
+    sums = {}
+    for k, r in enumerate(rs.ranks):
+        with on_rank(r):
+            for i, holders in enumerate(owners):
+                if r in holders:
+                    sums[r, i] = blocks[k][i].float().square().sum()
+    sq = [_sum_in_order([move(sums[0 if rs.lead else r, i], dev0, r, 0, "all-reduce")
+                         for r in holders]) for i, holders in enumerate(owners)]
+    gn, scale = norm_and_scale(sq, T.stacked_groups(params.ranks[0]), tcfg.grad_clip)
+    lr0 = None
+    for r in range(rs.mesh.size):
+        s_r = move(scale, devs[r], 0, r, "all-reduce")
+        if r not in rs.ranks:
+            continue
+        k = rs.ranks.index(r)
+        with on_rank(r):
+            if own:
+                torch._foreach_mul_(blocks[k], s_r)
+                grads_r = blocks[k]
+            else:
+                grads_r = list(torch._foreach_mul(blocks[k], s_r))  # fp32 blocks
+            lr = warmup_cosine(opt_state.ranks[r]["step"], tcfg.lr, tcfg.warmup, tcfg.total_steps)
+            lr0 = lr if lr0 is None else lr0
+            adamw_update(params.ranks[r], grads_r, opt_state.ranks[r], lr,
+                         weight_decay=tcfg.weight_decay)
+    return gn, lr0
+
+
+def _split_step(api: ModelAPI, tcfg: TrainConfig, accum: int, mesh):
+    """The train step in which each rank computes its share (the module
+    docstring; ``models/spmd.py``)."""
+    from ..core.sharding import RankSet
+    from . import spmd
+
+    cfg = api.cfg
+    dt = getattr(torch, tcfg.compute_dtype)
+
+    def split_train_step(params, opt_state, batch):
+        _check_placed(mesh, params, opt_state, batch)
+        rs = RankSet(mesh)
+        layout = spmd.Layout(cfg, mesh, params.specs)
+        blocks, loss, metrics = spmd.grads(rs, layout, cfg, params, batch, accum, dt, tcfg.remat)
+        with torch.no_grad():
+            gn, lr0 = _clip_and_update(rs, tcfg, params, opt_state, blocks, own=True)
+        return params, opt_state, {"loss": loss, "gnorm": gn, "lr": lr0, **metrics}
+
+    return split_train_step
+
+
+def _sharded_step(api: ModelAPI, tcfg: TrainConfig, accum: int, mesh):
+    """The gathered train step on a named mesh (the module docstring)."""
+    from ..core.sharding import RankSet, block_slices, move
+    from ..state import gather_tree
+    from .meshops import use_mesh
+
+    devs = mesh.require_devices()
     dev0 = devs[0]
 
     def sharded_train_step(params, opt_state, batch):
-        if not params.mesh == opt_state.mesh == batch.mesh == mesh:
-            raise ValueError("the parameters, the optimizer state and the batch must lie on "
-                             "the step's mesh")
-        if any(spec_axes(spec[0] if spec else None) != dp for spec in batch.spec_leaves()):
-            raise ValueError(f"the batch's rows must be split over the mesh's {dp} axes "
-                             "(models.sharding.batch_specs)")
+        _check_placed(mesh, params, opt_state, batch)
         specs, shapes = params.spec_leaves(), params.shapes
         rows = batch.shapes[0][0]
         copy = gather_tree(params, dev0)  # the parameters' all-gather: one compute copy
@@ -172,28 +259,7 @@ def _sharded_step(api: ModelAPI, tcfg: TrainConfig, accum: int, mesh):
                             "reduce-scatter") for i in range(len(grads))]
                       for r in range(mesh.size)]
             del grads
-            # the clip: each rank squares and sums its distinct blocks, and
-            # rank 0 adds each leaf's sums in rank order
-            owners = [distinct_ranks(spec, mesh) for spec in specs]
-            sums = {}
-            for r in range(mesh.size):
-                with on_rank(r):
-                    for i, own in enumerate(owners):
-                        if r in own:
-                            sums[r, i] = blocks[r][i].float().square().sum()
-            sq = [_sum_in_order([move(sums[r, i], dev0, r, 0, "all-reduce") for r in own])
-                  for i, own in enumerate(owners)]
-            gn, scale = norm_and_scale(sq, T.stacked_groups(params.ranks[0]), tcfg.grad_clip)
-            lr0 = None
-            for r in range(mesh.size):
-                with on_rank(r):
-                    s_r = move(scale, devs[r], 0, r, "all-reduce")
-                    grads_r = list(torch._foreach_mul(blocks[r], s_r))  # fp32 blocks
-                    lr = warmup_cosine(opt_state.ranks[r]["step"], tcfg.lr, tcfg.warmup,
-                                       tcfg.total_steps)
-                    lr0 = lr if lr0 is None else lr0
-                    adamw_update(params.ranks[r], grads_r, opt_state.ranks[r], lr,
-                                 weight_decay=tcfg.weight_decay)
+            gn, lr0 = _clip_and_update(RankSet(mesh), tcfg, params, opt_state, blocks)
         return params, opt_state, {"loss": loss, "gnorm": gn, "lr": lr0, **metrics}
 
     return sharded_train_step

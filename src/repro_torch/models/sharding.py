@@ -26,8 +26,13 @@ whether it is stacked. ``tree.stacked_groups`` maps the port's leaves onto
 the reference's. Every leaf name of the port is the reference's (the rules
 fire on the last dict key), so no name is mapped.
 
-In the port the ``model`` axis shards the parameters' storage and the
-optimizer update, not the products (``registry.make_train_step``).
+Where the planner puts ``model`` on a leaf decides its product in the
+train step that computes each rank's share (``models/spmd.py``, the dense
+and vlm families): column-parallel for the ``wq``/``wk``/``wv`` heads,
+``w_up``/``w_gate`` columns and the vocabulary, row-parallel for the
+``wo`` heads and ``w_down`` rows. For the other families the ``model``
+axis shards the parameters' storage and the optimizer update, not the
+products (``registry._sharded_step``).
 """
 from __future__ import annotations
 

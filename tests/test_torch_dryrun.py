@@ -172,9 +172,13 @@ def test_extrapolated_count_equals_direct():
 
 def test_seam_bytes_real_step_equal_fake_and_specs():
     """One real sharded step on a (data 2, model 2) mesh of CPU logical
-    shards moves, at its seams, the bytes the fake run counts and the
-    specs give; rank 0's argument bytes are its real blocks'. The FLOPs
-    counted on meta equal FlopCounterMode on the real step."""
+    shards moves, at rank 0's seams, the bytes the fake run (rank 0's
+    program alone) counts and the specs give; rank 0's argument bytes are
+    its real blocks'. Each rank computes its share (the dense family's
+    step): every leaf that ``data`` splits is gathered and its gradient
+    reduce-scattered (the tied embedding twice), and the FLOPs counted on
+    meta for rank 0, times the four ranks, equal FlopCounterMode on the
+    real step."""
     from torch.utils.flop_counter import FlopCounterMode
 
     cfg = _small()
@@ -197,9 +201,10 @@ def test_seam_bytes_real_step_equal_fake_and_specs():
     with count_seams() as real, FlopCounterMode(display=False) as fc:
         step(sp, so, sb)
     assert real == fake["collectives"] == built["coll"]
-    assert real["total_bytes"] > 0 and real["reduce-scatter"]["count"] == 3 * len(sp.shapes)
+    fsdp = sum(1 for spec in sp.spec_leaves() if "data" in spec) + cfg.tie_embed
+    assert real["total_bytes"] > 0 and real["reduce-scatter"]["count"] == 2 * fsdp
     assert arg_bytes == built["arg_bytes"]
-    assert fc.get_total_flops() == fake["cost"]["flops"]
+    assert fc.get_total_flops() == mesh.size * fake["cost"]["flops"]
 
 
 def test_run_cell_full_scale(tmp_path, monkeypatch):
